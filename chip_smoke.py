@@ -4,7 +4,9 @@ Hopper GPU. Run from the repository root: ``python3 chip_smoke.py``.
 
 Phases; any failure exits nonzero and prints no result:
   1. the card's name and power limit (nvidia-smi);
-  2. build both CUDA kernels from handmvnet_tpu_torch/csrc (nvcc, in parallel);
+  2. build both CUDA kernels from handmvnet_tpu_torch/csrc (nvcc, in parallel),
+     and count the tensor-core instructions (HMMA) in each library's SASS
+     (cuobjdump): the bf16 kernel of each must have some;
   3. hold each kernel against its plain PyTorch version at the shapes of the
      b1 x v8 main path, fp32 and bf16, with the tolerance stated;
   4. time each kernel, its plain version and one library call of the same
@@ -23,6 +25,8 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -81,6 +85,24 @@ def bound_ms(flops: float, nbytes: float, dtype) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def tensor_core_counts(lib: Path) -> dict:
+    """{kernel symbol: count of HMMA (mma.sync) and HGMMA (wgmma) instructions}
+    in a library's SASS."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True, timeout=120)
+    if sass.returncode != 0:
+        fail(f"cuobjdump -sass {lib.name}: {sass.stderr.strip()}")
+    counts, name = {}, None
+    for line in sass.stdout.splitlines():
+        head = re.match(r"\s*Function : (\S+)", line)
+        if head:
+            name = head.group(1)
+            counts[name] = 0
+        elif name is not None and re.search(r"\bH(G)?MMA\b", line):
+            counts[name] += 1
+    return counts
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -199,6 +221,12 @@ def main() -> None:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"   {name}: {line.strip()}", flush=True)
+    for name, path in sorted(libs.items()):
+        counts = tensor_core_counts(path)
+        for fn, c in counts.items():
+            print(f"   {name}: {c} HMMA/HGMMA in {fn}", flush=True)
+        if not any(c > 0 for fn, c in counts.items() if "bf16" in fn):
+            fail(f"{name}: no tensor-core instruction in its bf16 kernel ({counts})")
 
     # 3 + 4. each kernel against its plain version, and times
     gen = torch.Generator("cuda").manual_seed(0)

@@ -1,16 +1,16 @@
-// Helpers shared by the port's kernel sources: bf16 widening on load, rounding
-// on store, and the error-string entry every library exports.
+// Helpers shared by the port's kernel sources: the element load and store of
+// the CUDA-core (fp32) kernels, and the error-string entry every library
+// exports. The bf16 kernels use the tensor-core helpers of mma.cuh.
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-// Elements are loaded as raw bits and widened when stored to shared memory:
-// bf16 -> f32 is a 16-bit shift, with nothing between the loads to keep the
-// compiler from issuing them all at once.
+// Elements are loaded as raw bits and widened when stored to shared memory,
+// with nothing between the loads to keep the compiler from issuing them all
+// at once (for f32 the widening is the identity).
 template <typename T>
 struct Raw;
 template <>
@@ -18,16 +18,8 @@ struct Raw<float> {
   using type = float;
   static __device__ __forceinline__ float f32(float x) { return x; }
 };
-template <>
-struct Raw<__nv_bfloat16> {
-  using type = unsigned short;
-  static __device__ __forceinline__ float f32(unsigned short x) {
-    return __uint_as_float(static_cast<unsigned>(x) << 16);
-  }
-};
 
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
 }  // namespace
 

@@ -1,5 +1,6 @@
 """Port parity, attention (K1): handmvnet_tpu_torch.ops.attention and
-models.layers.MultiHeadAttention against the JAX package, fp32 on the CPU.
+models.layers.MultiHeadAttention against the JAX package on the CPU, in fp32,
+and in bf16 for the function the card's bf16 kernel computes.
 
 On a CPU tensor ``fused_attention`` computes its plain version, which is what
 these tests hold against the Pallas kernel (interpret mode) and its jnp
@@ -46,6 +47,25 @@ def test_plain_matches_pallas_interpret_and_jnp(nq, nk):
     assert ours.shape == oracle.shape == (1, 8, nq, 128)
     np.testing.assert_allclose(ours, pallas, atol=ATOL)
     np.testing.assert_allclose(ours, oracle, atol=ATOL)
+
+
+@pytest.mark.parametrize("nq,nk", MAIN_PATH_SHAPES)
+def test_plain_matches_pallas_interpret_bf16(nq, nk):
+    """The bf16 function the card's kernel is held to: the plain version in
+    bf16 against the Pallas kernel in bf16 (which rounds p to bf16 before
+    the p v product), within 2^-6 x max|plain|, an ulp or two."""
+    q, k, v = _qkv(nq, nk, seed=0)
+    scale = 128 ** -0.5
+    ours = fused_attention(*(torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)),
+                           scale)
+    assert ours.dtype == torch.bfloat16
+    ours = ours.float().numpy()
+    pallas = jax_fused_attention(*(jnp.asarray(a, dtype=jnp.bfloat16) for a in (q, k, v)),
+                                 scale, interpret=True)
+    assert pallas.dtype == jnp.bfloat16
+    pallas = np.asarray(pallas.astype(jnp.float32))
+    assert ours.shape == pallas.shape == (1, 8, nq, 128)
+    np.testing.assert_allclose(ours, pallas, rtol=0, atol=2.0 ** -6 * np.abs(ours).max())
 
 
 def test_cpu_wrapper_takes_plain_version_and_counts_no_launch():

@@ -1,5 +1,6 @@
 """Port parity, stem (K2) and backbone: handmvnet_tpu_torch.ops.stem and
-models.backbones.resnet against the JAX package, fp32 on the CPU.
+models.backbones.resnet against the JAX package on the CPU, in fp32, and in
+bf16 for the function the card's bf16 kernel computes.
 
 On a CPU tensor ``stem_conv`` computes its plain version, held here against
 the Pallas kernel (interpret mode) and the plain JAX conv. The CUDA kernel
@@ -38,6 +39,23 @@ def test_stem_matches_pallas_interpret_and_plain_conv(shape):
     assert ours.shape == ref.shape == (shape[0], shape[1] // 2, shape[2] // 2, 64)
     assert rel_max_err(ours, pallas) < REL_TOL
     assert rel_max_err(ours, ref) < REL_TOL
+
+
+def test_stem_matches_pallas_interpret_bf16():
+    """The bf16 function the card's kernel is held to: the plain conv in bf16
+    against the Pallas kernel in bf16 (bf16 products, f32 sums, one rounding),
+    within 2^-6 x max|plain|, an ulp or two."""
+    x, kernel = _stem_case((2, 64, 64, 3), seed=0)
+    ours = stem_conv(torch.from_numpy(x).to(torch.bfloat16),
+                     torch.from_numpy(kernel).to(torch.bfloat16))
+    assert ours.dtype == torch.bfloat16
+    ours = ours.float().numpy()
+    pallas = stem_s2d_fused(jnp.asarray(x, dtype=jnp.bfloat16),
+                            jnp.asarray(kernel, dtype=jnp.bfloat16), interpret=True)
+    assert pallas.dtype == jnp.bfloat16
+    pallas = np.asarray(pallas.astype(jnp.float32))
+    assert ours.shape == pallas.shape == (2, 32, 32, 64)
+    np.testing.assert_allclose(ours, pallas, rtol=0, atol=2.0 ** -6 * np.abs(ours).max())
 
 
 def test_stem_odd_size_matches_plain_conv():
