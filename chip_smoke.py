@@ -6,7 +6,7 @@ Phases; any failure exits nonzero and prints no result:
   1. the card's name and power limit (nvidia-smi);
   2. build both CUDA kernels from handmvnet_tpu_torch/csrc (nvcc, in parallel),
      and count the tensor-core instructions (HMMA) in each library's SASS
-     (cuobjdump): the bf16 kernel of each must have some;
+     (cuobjdump): the bf16 and the fp32 (3xTF32) kernel of each must have some;
   3. hold each kernel against its plain PyTorch version at the shapes of the
      b1 x v8 main path, fp32 and bf16, with the tolerance stated;
   4. time each kernel, its plain version and one library call of the same
@@ -39,9 +39,12 @@ REPO = Path(__file__).resolve().parent
 CONFIG = REPO / "configs" / "release" / "HO3D_HandMvNet.yaml"
 WARMUP, ITERS = 100, 1000  # the reference's protocol; warmup + 2 * ITERS forwards per dtype
 
-# H100 SXM data sheet: HBM rate, fp32 CUDA-core peak, dense bf16 tensor-core peak
+# H100 SXM data sheet: HBM rate, dense tensor-core peaks. The fp32 kernels run
+# each f32 product as three TF32 products (3xTF32), so their peak is a third of
+# the 495 TFLOP/s TF32 rate (above the 67 TFLOP/s of f32 FMAs on CUDA cores).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
+MMA_KERNELS = ("bf16_mma", "tf32x3_mma")  # each library's tensor-core kernels, by symbol
 
 ATTN_SHAPES = ((168, 168), (21, 147), (21, 21))  # (Nq, Nk) of the 5 fusion blocks
 ATTN_CALLS = {(168, 168): 2, (21, 147): 1, (21, 21): 2}  # launches per forward
@@ -225,8 +228,9 @@ def main() -> None:
         counts = tensor_core_counts(path)
         for fn, c in counts.items():
             print(f"   {name}: {c} HMMA/HGMMA in {fn}", flush=True)
-        if not any(c > 0 for fn, c in counts.items() if "bf16" in fn):
-            fail(f"{name}: no tensor-core instruction in its bf16 kernel ({counts})")
+        for tag in MMA_KERNELS:
+            if not any(c > 0 for fn, c in counts.items() if tag in fn):
+                fail(f"{name}: no tensor-core instruction in its {tag} kernel ({counts})")
 
     # 3 + 4. each kernel against its plain version, and times
     gen = torch.Generator("cuda").manual_seed(0)

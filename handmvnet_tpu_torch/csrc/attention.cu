@@ -10,7 +10,9 @@
 // One forward's five calls move 3.6 MB in bf16: 1.1 us at 3.35 TB/s, against
 // 0.5 us of tensor-core work at 989 TFLOP/s, so the bf16 path is bound by
 // bytes -- and in practice by latency: so little work leaves a block the time
-// of a few round trips to memory, which is what the design minimises.
+// of a few round trips to memory, which is what the design minimises. In fp32
+// the five calls move 7.6 MB (2.3 us) against 1.5 us of 3xTF32 tensor-core
+// work at 165 TFLOP/s (mma.cuh): bound by bytes, and again by latency.
 //
 // bf16 (attention_fwd_bf16_mma): flash-attention-2 on the tensor cores
 // (mma.sync m16n8k16, bf16 in, f32 accumulation). A block owns 16 query rows
@@ -28,15 +30,29 @@
 // rounded once and stored in 16-byte pieces. cp.async needs 16-byte-aligned
 // rows: the entry refuses other strides (cudaErrorInvalidValue).
 //
-// fp32 (attention_fwd_kernel<float>): a CUDA-core kernel with f32 FMAs. It
-// already beats the library call, and the tensor cores' TF32 would not hold
-// the 2e-5 tolerance. Its design: the query rows are split over blocks, grid
-// (B*H, ceil(Nq/8)), and each block streams the keys in tiles of 32 with an
-// online (running max, running sum) softmax, the ragged last tile masked to
-// -inf. The next key tile is loaded into registers while the
-// current one is computed, so a block waits on memory once, not once per tile;
-// K is stored transposed and Q and P are read four-wide, so the inner loops
-// need few shared loads per FMA. 38.4 KB of static shared memory.
+// fp32 (attention_fwd_tf32x3_mma): the bf16 kernel's tiling, grid, per-warp
+// cp.async slices and merge, with S = Q K^T and O = P V in 3xTF32 (mma.sync
+// m16n8k8, each f32 operand split into TF32 hi and lo parts, three products;
+// mma.cuh): the 2e-5 tolerance holds, where one TF32 product (11 bits) would
+// not. The CUDA-core kernel it replaces ran every product as an f32 FMA and
+// took three block barriers per 32-key tile; this one waits on memory once per
+// pass, with no block barrier in the key loop. Q is split once while it is
+// staged (each thread builds whole fragments from 8-byte loads) and kept in
+// shared memory as hi and lo planes of A fragments, a 16-byte load per lane and
+// k-step, rather than in registers (128 of them at D = 128). A warp walks its
+// slice one 16-key block at a time in a loop that is not unrolled (S over the
+// block, the online softmax, then P V); unrolled over the three blocks of a
+// slice it was 6% slower (kernel_variants.py). K and V are split in registers
+// as they are read (each element is read once a warp); P is split in registers
+// and is not rounded, since the Pallas kernel's p.astype(v.dtype) is the
+// identity in f32. k is permuted within each 8-wide step (mma.cuh): S's B
+// fragment is one 8-byte load of a K row (136-word rows, conflict-free), P's C
+// fragment is the next product's A fragment as it stands, and V's B fragment is
+// rows 2t and 2t+1 (132-word rows, conflict-free). 48-key slices at 4 bytes
+// take 217 KB of shared memory, one block an SM: the main path launches at most
+// 88 blocks on 132 SMs, and every main-path shape needs a single pass (slices
+// of 32 or 16 keys were no faster). The entry refuses rows not on 16 bytes, as
+// in bf16.
 //
 // Strided inputs: q/k/v/o are addressed as base + b*sb + h*sh + n*sn + d, so the
 // caller passes the projections' [b, n, h, d] views without a copy.
@@ -49,159 +65,12 @@
 namespace {
 
 constexpr int kD = 128;   // head width (dim_head of every fusion block)
-constexpr int kTQ = 8;    // query rows per block
-constexpr int kTK = 32;   // keys per tile (one per lane)
-constexpr int kThreads = 128;  // = kD: thread t owns output column t
-constexpr int kRowsPerWarp = kTQ / (kThreads / 32);  // 2
-static_assert(kThreads == kD, "one thread per head-dim column");
-static_assert(kRowsPerWarp * (kThreads / 32) == kTQ && kTK == 32, "tile shape");
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// rows k0 .. k0+31 of one column of K and V; rows past nk read as 0
-template <typename R>
-__device__ __forceinline__ void load_tile(const R* __restrict__ kb, const R* __restrict__ vb,
-                                          long long ksn, long long vsn, int k0, int nk,
-                                          R (&rk)[kTK], R (&rv)[kTK]) {
-#pragma unroll
-  for (int j = 0; j < kTK; ++j) {
-    const bool in = k0 + j < nk;
-    rk[j] = in ? kb[(k0 + j) * ksn] : R(0);
-    rv[j] = in ? vb[(k0 + j) * vsn] : R(0);
-  }
-}
-
 struct Strides {
   long long b, h, n;
 };
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o, int heads,
-                     int nq, int nk, Strides qs, Strides ks, Strides vs,
-                     Strides os, float scale) {
-  __shared__ __align__(16) float q_s[kTQ][kD];
-  __shared__ float kt_s[kD][kTK + 1];  // K transposed; +1 keeps both the
-                                       // column stores and row reads conflict-free
-  __shared__ float v_s[kTK][kD];
-  __shared__ __align__(16) float p_s[kTQ][kTK];
-  __shared__ float alpha_s[kTQ];
-  __shared__ float l_s[kTQ];
-
-  const int b = blockIdx.x / heads;
-  const int h = blockIdx.x % heads;
-  const int q0 = blockIdx.y * kTQ;
-  const int tid = threadIdx.x;  // also the head-dim column this thread loads
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-
-  using R = typename Raw<T>::type;
-  const R* qb = reinterpret_cast<const R*>(q) + b * qs.b + h * qs.h + tid;
-  const R* kb = reinterpret_cast<const R*>(k) + b * ks.b + h * ks.h + tid;
-  const R* vb = reinterpret_cast<const R*>(v) + b * vs.b + h * vs.h + tid;
-  T* ob = o + b * os.b + h * os.h + tid;
-
-  {
-    R r[kTQ];
-#pragma unroll
-    for (int i = 0; i < kTQ; ++i) r[i] = q0 + i < nq ? qb[(q0 + i) * qs.n] : R(0);
-#pragma unroll
-    for (int i = 0; i < kTQ; ++i) q_s[i][tid] = Raw<T>::f32(r[i]);
-  }
-
-  // column tid of the next key tile, loaded into registers while the
-  // current tile is computed
-  R rk[kTK], rv[kTK];
-  load_tile(kb, vb, ks.n, vs.n, 0, nk, rk, rv);
-
-  // running max and sum of the rows this warp owns (warp * 2 + r), the same
-  // value in every lane; acc holds output column tid of all 8 rows
-  float m[kRowsPerWarp], l[kRowsPerWarp];
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    m[r] = -INFINITY;
-    l[r] = 0.f;
-  }
-  float acc[kTQ];
-#pragma unroll
-  for (int i = 0; i < kTQ; ++i) acc[i] = 0.f;
-
-  for (int k0 = 0; k0 < nk; k0 += kTK) {
-    __syncthreads();  // the previous tile's readers of kt_s/v_s/p_s are done
-#pragma unroll
-    for (int j = 0; j < kTK; ++j) {
-      kt_s[tid][j] = Raw<T>::f32(rk[j]);
-      v_s[j][tid] = Raw<T>::f32(rv[j]);
-    }
-    __syncthreads();
-    if (k0 + kTK < nk) load_tile(kb, vb, ks.n, vs.n, k0 + kTK, nk, rk, rv);
-
-    // logits of rows i0, i0+1 against key k0 + lane
-    const int i0 = warp * kRowsPerWarp;
-    float s[kRowsPerWarp] = {0.f, 0.f};
-#pragma unroll 8
-    for (int d = 0; d < kD; d += 4) {
-      const float k_d0 = kt_s[d][lane], k_d1 = kt_s[d + 1][lane];
-      const float k_d2 = kt_s[d + 2][lane], k_d3 = kt_s[d + 3][lane];
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const float4 qv = *reinterpret_cast<const float4*>(&q_s[i0 + r][d]);
-        s[r] = fmaf(qv.x, k_d0, fmaf(qv.y, k_d1, fmaf(qv.z, k_d2, fmaf(qv.w, k_d3, s[r]))));
-      }
-    }
-    const bool key_valid = k0 + lane < nk;
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const float sr = key_valid ? s[r] * scale : -INFINITY;
-      // every tile holds at least one valid key, so m_new is finite
-      const float m_new = fmaxf(m[r], warp_max(sr));
-      const float p = expf(sr - m_new);
-      const float alpha = expf(m[r] - m_new);  // 0 on the first tile
-      l[r] = l[r] * alpha + warp_sum(p);
-      m[r] = m_new;
-      p_s[i0 + r][lane] = p;
-      if (lane == 0) alpha_s[i0 + r] = alpha;
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int i = 0; i < kTQ; ++i) acc[i] *= alpha_s[i];
-#pragma unroll 2
-    for (int j = 0; j < kTK; j += 4) {
-      const float v0 = v_s[j][tid], v1 = v_s[j + 1][tid];
-      const float v2 = v_s[j + 2][tid], v3 = v_s[j + 3][tid];
-#pragma unroll
-      for (int i = 0; i < kTQ; ++i) {
-        const float4 p = *reinterpret_cast<const float4*>(&p_s[i][j]);
-        acc[i] = fmaf(p.w, v3, fmaf(p.z, v2, fmaf(p.y, v1, fmaf(p.x, v0, acc[i]))));
-      }
-    }
-  }
-
-  if (lane == 0) {
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) l_s[warp * kRowsPerWarp + r] = l[r];
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < kTQ; ++i) {
-    const int row = q0 + i;
-    if (row < nq) store(ob + row * os.n, acc[i] / l_s[i]);
-  }
-}
-
 // ---- bf16: tensor cores ---------------------------------------------------
+// (its tiling, kMma* and slice_blocks, is the fp32 kernel's too)
 
 constexpr int kMmaRows = 16;         // query rows per block: one m16 tile
 constexpr int kMmaWarps = 4;         // all on the same rows, splitting the keys
@@ -425,12 +294,243 @@ attention_fwd_bf16_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
   }
 }
 
-// cp.async and the 16-byte stores need every row of q, k, v and o to start on
-// 16 bytes: aligned bases, and strides in multiples of 8 elements wherever the
-// dimension has more than one index
-bool rows_aligned(const void* p, const Strides& s, int batch, int heads, int n) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && (batch == 1 || s.b % 8 == 0) &&
-         (heads == 1 || s.h % 8 == 0) && (n == 1 || s.n % 8 == 0);
+// ---- fp32: tensor cores in 3xTF32 -----------------------------------------
+// The bf16 kernel's shape (16 query rows a block, 4 warps splitting the keys
+// in 48-key slices) with every product in 3xTF32 (mma.cuh).
+
+constexpr int kQWords = kMmaRows * kD;  // one plane of Q as A fragments
+constexpr int kKRow = kD + 8;  // 136-word K rows: 8-byte B-fragment loads free of conflicts
+constexpr int kVRow = kD + 4;  // 132-word V rows: 4-byte B-fragment loads free of conflicts
+constexpr int kF32SmemBytes =
+    (2 * kQWords + kMmaWarps * kSliceKeys * (kKRow + kVRow)) * 4;  // Q hi, lo + each warp's K, V
+static_assert(kMmaWarps * kMmaRows * kOStride <= kMmaWarps * kSliceKeys * (kKRow + kVRow),
+              "the merge buffer fits where K and V were");
+
+// rows [0, 16 * blocks) of a warp's f32 K and V slice, from key key0; keys past
+// nk are zero-filled (p = 0 times stale data could be NaN)
+__device__ __forceinline__ void load_slice_f32(float* k_s, float* v_s, const float* kb,
+                                               const float* vb, long long ksn, long long vsn,
+                                               int key0, int blocks, int nk, int lane) {
+  for (int i = lane; i < blocks * 16 * (kD / 4); i += 32) {
+    const int r = i / (kD / 4), c = (i % (kD / 4)) * 4;
+    const bool in = key0 + r < nk;
+    const long long key = in ? key0 + r : 0;
+    cp_async16(k_s + r * kKRow + c, kb + key * ksn + c, in);
+    cp_async16(v_s + r * kVRow + c, vb + key * vsn + c, in);
+  }
+}
+
+__global__ void __launch_bounds__(kMmaWarps * 32, 1)
+attention_fwd_tf32x3_mma(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, float* __restrict__ o, int heads, int nq,
+                         int nk, Strides qs, Strides ks, Strides vs, Strides os,
+                         float scale_log2) {
+  extern __shared__ uint4 smem_f32[];
+  __shared__ float m_s[kMmaWarps][kMmaRows], l_s[kMmaWarps][kMmaRows];
+  uint32_t* qh_s = reinterpret_cast<uint32_t*>(smem_f32);  // Q's hi parts, A fragments
+  uint32_t* ql_s = qh_s + kQWords;                         // their lo parts
+  float* kv_all = reinterpret_cast<float*>(ql_s + kQWords);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  float* k_s = kv_all + warp * kSliceKeys * (kKRow + kVRow);
+  float* v_s = k_s + kSliceKeys * kKRow;
+
+  const int b = blockIdx.x / heads, h = blockIdx.x % heads;
+  const int q0 = blockIdx.y * kMmaRows;
+  const float* qb = q + b * qs.b + h * qs.h;
+  const float* kb = k + b * ks.b + h * ks.h;
+  const float* vb = v + b * vs.b + h * vs.h;
+
+  // this warp's first slice in flight, then Q (rows past nq zero), split once
+  // into hi and lo planes of A fragments: a thread builds whole fragments
+  // (rows g, g+8 of d 8kk + 2t, 2t+1) from two 8-byte loads and stores each
+  // plane's part as one 16-byte word
+  int lo;
+  int blocks = slice_blocks(0, nk, warp, lo);
+  load_slice_f32(k_s, v_s, kb, vb, ks.n, vs.n, lo * 16, blocks, nk, lane);
+  {
+    constexpr int kIters = kQWords / 4 / (kMmaWarps * 32);
+    float2 r[kIters][2];
+#pragma unroll
+    for (int it = 0; it < kIters; ++it) {
+      const int f = tid + it * kMmaWarps * 32;  // fragment: k-step f / 32, lane f % 32
+      const int row = (f & 31) >> 2, d = (f >> 5) * 8 + 2 * (f & 3);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int qr = q0 + row + 8 * half;
+        r[it][half] = qr < nq ? *reinterpret_cast<const float2*>(qb + qr * qs.n + d)
+                              : make_float2(0.f, 0.f);
+      }
+    }
+#pragma unroll
+    for (int it = 0; it < kIters; ++it) {
+      uint4 hi, lo4;
+      split_tf32(r[it][0].x, hi.x, lo4.x);
+      split_tf32(r[it][1].x, hi.y, lo4.y);
+      split_tf32(r[it][0].y, hi.z, lo4.z);
+      split_tf32(r[it][1].y, hi.w, lo4.w);
+      reinterpret_cast<uint4*>(qh_s)[tid + it * kMmaWarps * 32] = hi;
+      reinterpret_cast<uint4*>(ql_s)[tid + it * kMmaWarps * 32] = lo4;
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  const uint4* qh4 = reinterpret_cast<const uint4*>(qh_s) + lane;
+  const uint4* ql4 = reinterpret_cast<const uint4*>(ql_s) + lane;
+
+  // running max (log2 units) and sum of rows g and g+8; O over 16 n8 tiles of d
+  float m_r[2] = {-INFINITY, -INFINITY}, l_r[2] = {0.f, 0.f};
+  float acc[kD / 8][4];
+#pragma unroll
+  for (int j = 0; j < kD / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  for (int p0 = 0; p0 < nk; p0 += kPassKeys) {
+    if (p0 > 0) {  // a later pass: only this warp reads its slice
+      __syncwarp();
+      blocks = slice_blocks(p0, nk, warp, lo);
+      load_slice_f32(k_s, v_s, kb, vb, ks.n, vs.n, p0 + lo * 16, blocks, nk, lane);
+      cp_async_wait_all();
+      __syncwarp();
+    }
+    // the slice's 16-key blocks one at a time, in a loop not unrolled
+#pragma unroll 1
+    for (int kb16 = 0; kb16 < blocks; ++kb16) {
+      const int key0 = p0 + (lo + kb16) * 16;
+
+      // S = Q K^T over 16 keys: n8 tile j holds keys key0 + 8j ..; B fragment
+      // (d 8kk + 2t, 2t+1; key g) is one 8-byte load, split in registers
+      const float* kr = k_s + (16 * kb16 + g) * kKRow + 2 * t;
+      float s[2][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < kD / 8; ++kk) {
+        const uint4 h4 = qh4[kk * 32], l4 = ql4[kk * 32];
+        const uint32_t qh[4] = {h4.x, h4.y, h4.z, h4.w}, ql[4] = {l4.x, l4.y, l4.z, l4.w};
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const float2 kf = *reinterpret_cast<const float2*>(kr + 8 * j * kKRow + 8 * kk);
+          uint32_t bh[2], bl[2];
+          split_tf32(kf.x, bh[0], bl[0]);
+          split_tf32(kf.y, bh[1], bl[1]);
+          mma_tf32x3(s[j], qh, ql, bh, bl);
+        }
+      }
+
+      // scale, mask keys >= nk, online softmax; every row has a valid key
+      // here (the block's first), so m_new is finite
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool in = key0 + 8 * j + 2 * t + (e & 1) < nk;
+          s[j][e] = in ? s[j][e] * scale_log2 : -INFINITY;
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+        }
+      }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m_r[r], mx[r]);
+        alpha[r] = exp2f(m_r[r] - m_new);  // 0 on the warp's first block
+        m_r[r] = m_new;
+      }
+      float sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] = exp2f(s[j][e] - m_r[e >> 1]);
+          sum[e >> 1] += s[j][e];
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+        l_r[r] = l_r[r] * alpha[r] + sum[r];
+      }
+#pragma unroll
+      for (int j = 0; j < kD / 8; ++j) {
+        acc[j][0] *= alpha[0];
+        acc[j][1] *= alpha[0];
+        acc[j][2] *= alpha[1];
+        acc[j][3] *= alpha[1];
+      }
+
+      // O += P V over two 8-key steps: P's C fragment, as (c0, c2, c1, c3), is
+      // the A fragment with column t as key 2t and t+4 as key 2t+1 (no
+      // rounding: the Pallas kernel's p.astype(v.dtype) is the identity in
+      // f32); V's B fragment is rows 2t and 2t+1, column g of each d tile
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        uint32_t ph[4], pl[4];
+        split_tf32(s[j][0], ph[0], pl[0]);
+        split_tf32(s[j][2], ph[1], pl[1]);
+        split_tf32(s[j][1], ph[2], pl[2]);
+        split_tf32(s[j][3], ph[3], pl[3]);
+        const float* v0 = v_s + (16 * kb16 + 8 * j + 2 * t) * kVRow + g;
+#pragma unroll
+        for (int dt = 0; dt < kD / 8; ++dt) {
+          uint32_t bh[2], bl[2];
+          split_tf32(v0[8 * dt], bh[0], bl[0]);
+          split_tf32(v0[kVRow + 8 * dt], bh[1], bl[1]);
+          mma_tf32x3(acc[dt], ph, pl, bh, bl);
+        }
+      }
+    }
+  }
+
+  // merge the warps: O = sum_w O_w exp(m_w - m) / sum_w l_w exp(m_w - m),
+  // leaving out warps that saw no key (l_w = 0, m_w = -inf)
+  if (t == 0) {
+    m_s[warp][g] = m_r[0], m_s[warp][g + 8] = m_r[1];
+    l_s[warp][g] = l_r[0], l_s[warp][g + 8] = l_r[1];
+  }
+  __syncthreads();  // also: every warp is done with its K and V
+  float f[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = g + 8 * r;
+    float m = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kMmaWarps; ++w)
+      if (l_s[w][row] > 0.f) m = fmaxf(m, m_s[w][row]);
+    float l = 0.f;
+#pragma unroll
+    for (int w = 0; w < kMmaWarps; ++w)
+      if (l_s[w][row] > 0.f) l += l_s[w][row] * exp2f(m_s[w][row] - m);
+    f[r] = l_r[r] > 0.f ? exp2f(m_r[r] - m) / l : 0.f;
+  }
+  float* o_w = kv_all + warp * kMmaRows * kOStride;
+#pragma unroll
+  for (int j = 0; j < kD / 8; ++j) {
+    *reinterpret_cast<float2*>(o_w + g * kOStride + 8 * j + 2 * t) =
+        make_float2(acc[j][0] * f[0], acc[j][1] * f[0]);
+    *reinterpret_cast<float2*>(o_w + (g + 8) * kOStride + 8 * j + 2 * t) =
+        make_float2(acc[j][2] * f[1], acc[j][3] * f[1]);
+  }
+  __syncthreads();
+  for (int i = tid; i < kMmaRows * (kD / 4); i += kMmaWarps * 32) {
+    const int r = i / (kD / 4), c = (i % (kD / 4)) * 4;
+    if (q0 + r >= nq) continue;
+    float4 sum4 = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int w = 0; w < kMmaWarps; ++w) {
+      const float4 a = *reinterpret_cast<const float4*>(kv_all + (w * kMmaRows + r) * kOStride + c);
+      sum4.x += a.x, sum4.y += a.y, sum4.z += a.z, sum4.w += a.w;
+    }
+    *reinterpret_cast<float4*>(o + b * os.b + h * os.h + (q0 + r) * os.n + c) = sum4;
+  }
+}
+
+// cp.async and the 16-byte loads and stores need every row of q, k, v and o to
+// start on 16 bytes: aligned bases, and strides in multiples of `vec` elements
+// (16 bytes) wherever the dimension has more than one index
+bool rows_aligned(const void* p, const Strides& s, int batch, int heads, int n, int vec) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && (batch == 1 || s.b % vec == 0) &&
+         (heads == 1 || s.h % vec == 0) && (n == 1 || s.n % vec == 0);
 }
 
 }  // namespace
@@ -438,7 +538,7 @@ bool rows_aligned(const void* p, const Strides& s, int batch, int heads, int n) 
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements; the last (head
-// width) dimension must be contiguous and equal to 128; in bf16 every row must
+// width) dimension must be contiguous and equal to 128, and every row must
 // start on 16 bytes. Returns cudaErrorInvalidValue for what the kernels do not
 // take, else the launch's cudaGetLastError() code.
 int hmv_attention_fwd(const void* q, const void* k, const void* v, void* o,
@@ -452,25 +552,31 @@ int hmv_attention_fwd(const void* q, const void* k, const void* v, void* o,
   const Strides qs{q_sb, q_sh, q_sn}, ks{k_sb, k_sh, k_sn}, vs{v_sb, v_sh, v_sn},
       os{o_sb, o_sh, o_sn};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(batch * heads, (nq + kMmaRows - 1) / kMmaRows);
+  const float scale_log2 = scale * 1.4426950408889634f;  // log2(e): exp2 in the kernels
   if (dtype == 0) {
-    const dim3 grid(batch * heads, (nq + kTQ - 1) / kTQ);
-    attention_fwd_kernel<float><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), heads, nq, nk, qs,
-        ks, vs, os, scale);
+    if (!rows_aligned(q, qs, batch, heads, nq, 4) || !rows_aligned(k, ks, batch, heads, nk, 4) ||
+        !rows_aligned(v, vs, batch, heads, nk, 4) || !rows_aligned(o, os, batch, heads, nq, 4))
+      return cudaErrorInvalidValue;
+    // above 48 KB of shared memory only after this opt-in (idempotent, cheap)
+    const cudaError_t err = cudaFuncSetAttribute(
+        attention_fwd_tf32x3_mma, cudaFuncAttributeMaxDynamicSharedMemorySize, kF32SmemBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attention_fwd_tf32x3_mma<<<grid, kMmaWarps * 32, kF32SmemBytes, s>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        static_cast<float*>(o), heads, nq, nk, qs, ks, vs, os, scale_log2);
   } else if (dtype == 1) {
-    if (!rows_aligned(q, qs, batch, heads, nq) || !rows_aligned(k, ks, batch, heads, nk) ||
-        !rows_aligned(v, vs, batch, heads, nk) || !rows_aligned(o, os, batch, heads, nq))
+    if (!rows_aligned(q, qs, batch, heads, nq, 8) || !rows_aligned(k, ks, batch, heads, nk, 8) ||
+        !rows_aligned(v, vs, batch, heads, nk, 8) || !rows_aligned(o, os, batch, heads, nq, 8))
       return cudaErrorInvalidValue;
     // above 48 KB of shared memory only after this opt-in (idempotent, cheap)
     const cudaError_t err = cudaFuncSetAttribute(
         attention_fwd_bf16_mma, cudaFuncAttributeMaxDynamicSharedMemorySize, kMmaSmemBytes);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid(batch * heads, (nq + kMmaRows - 1) / kMmaRows);
     attention_fwd_bf16_mma<<<grid, kMmaWarps * 32, kMmaSmemBytes, s>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), heads,
-        nq, nk, qs, ks, vs, os, scale * 1.4426950408889634f);  // log2(e): exp2 below
+        nq, nk, qs, ks, vs, os, scale_log2);
   } else {
     return cudaErrorInvalidValue;
   }

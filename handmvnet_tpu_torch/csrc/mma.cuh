@@ -1,6 +1,7 @@
-// Inline-PTX wrappers for the bf16 tensor-core paths (sm_80+ instructions, run
-// here on sm_90a): cp.async into shared memory, ldmatrix, and the warp-wide
-// m16n8k16 bf16 product with f32 accumulation.
+// Inline-PTX wrappers for the tensor-core paths (sm_80+ instructions, run here
+// on sm_90a): cp.async into shared memory, ldmatrix, the warp-wide m16n8k16
+// bf16 product and the m16n8k8 TF32 product, both with f32 accumulation, and
+// the 3xTF32 split that carries f32 operands through the TF32 product.
 //
 // Fragment layouts of mma.m16n8k16 (g = lane / 4, t = lane % 4), each register
 // holding two bf16 (the lower column or k index in the low half):
@@ -10,6 +11,24 @@
 //   C (16 x 8, f32):        c0, c1 (row g, cols 2t, 2t+1), c2, c3 (row g+8, same)
 // So the C fragments of two neighbouring n8 tiles are, rounded to bf16 in
 // pairs, the A fragment of a product over their 16 columns.
+//
+// Fragment layouts of mma.m16n8k8 with tf32 operands, one value a register:
+//   A (16 x 8, row-major):  a0 (row g, k t), a1 (row g+8, k t),
+//                           a2 (row g, k t+4), a3 (row g+8, k t+4)
+//   B (8 x 8, col-major):   b0 (k t, col g), b1 (k t+4, col g)
+//   C (16 x 8, f32):        as for m16n8k16
+// A product sums over k, so the fp32 kernels permute k inside each 8-wide
+// step: fragment index t stands for k = 2t and t+4 for k = 2t+1. A B fragment
+// is then two neighbours (one 64-bit load where they are neighbours in
+// memory), and a C fragment (cols 2t, 2t+1) is, as (c0, c2, c1, c3), the A
+// fragment of a product over those 8 columns, with no shuffle.
+//
+// 3xTF32: a TF32 product keeps 11 significant bits of each operand. An f32 x
+// splits into hi = tf32(x) and lo = tf32(x - hi), which hold x to ~2^-22 of
+// |x|; a b = lo_a hi_b + hi_a lo_b + hi_a hi_b, small products first, in one
+// f32 accumulator, leaving out lo_a lo_b (~2^-22 of |a b|). Three TF32
+// products (495 TFLOP/s dense on an H100 SXM) per f32 product: ~165 TFLOP/s,
+// against 67 for f32 FMAs on the CUDA cores.
 
 #pragma once
 
@@ -68,6 +87,38 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // two raw bf16 into one register, lo in the low half
 __device__ __forceinline__ uint32_t pack_raw(unsigned short lo, unsigned short hi) {
   return static_cast<uint32_t>(lo) | (static_cast<uint32_t>(hi) << 16);
+}
+
+// f32 -> tf32, rounded to nearest with ties away from zero: the 13 low
+// mantissa bits cleared
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo to ~2^-22 of |x|, both tf32
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// d += a * b over one 16 x 8 x 8 tile, tf32 operands
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a * b in 3xTF32, a and b given as their hi and lo parts
+__device__ __forceinline__ void mma_tf32x3(float (&d)[4], const uint32_t (&a_hi)[4],
+                                           const uint32_t (&a_lo)[4], const uint32_t (&b_hi)[2],
+                                           const uint32_t (&b_lo)[2]) {
+  mma_tf32(d, a_lo, b_hi[0], b_hi[1]);
+  mma_tf32(d, a_hi, b_lo[0], b_lo[1]);
+  mma_tf32(d, a_hi, b_hi[0], b_hi[1]);
 }
 
 }  // namespace

@@ -1,0 +1,257 @@
+"""Variants of the port's kernels (csrc/stem.cu, csrc/attention.cu), built side
+by side and timed at the main-path shapes on the card:
+``python -m handmvnet_tpu_torch.kernel_variants {stem,attention}
+[--dtype float32|bfloat16] [--against DIR]``
+
+Each variant is the kernel's source with text substitutions: another output
+tile or key slice, or one phase of the kernel taken out. Each is compiled by
+nvcc with the port's flags into build/kernels/variants/, called through the
+same C entry at the main path's shapes, and timed as a CUDA graph of 20
+calls, inputs warm in L2, in turns with the others and with one library call
+of the same function (``F.conv2d``, SDPA). The stem runs on x [8, 3, 256,
+256], the model's NHWC image viewed as NCHW; attention runs one forward's
+five calls, (168, 168) x2, (21, 147), (21, 21) x2, on [b, n, h, d] views.
+Variants with a phase taken out compute wrong results by design: their times
+say how much of the kernel's time that phase holds.
+
+``--against DIR`` adds the same kernel built from another checkout's
+sources (DIR/handmvnet_tpu_torch/csrc, e.g. the parent commit unpacked with
+``git archive``) as the variant "against", so two versions of a kernel are
+timed in turns in one process on one card.
+
+Prints the card's name and power limit, one line per variant, then one JSON
+line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import re
+import subprocess
+from pathlib import Path
+
+import torch
+import torch.nn.functional as F
+
+from handmvnet_tpu_torch.ops import _build
+from handmvnet_tpu_torch.ops.attention import attention_plain
+from handmvnet_tpu_torch.ops.stem import stem_conv_plain
+from handmvnet_tpu_torch.profile_forward import graph_ms
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # the C entries' dtype argument
+ATTN_CALLS = {(168, 168): 2, (21, 147): 1, (21, 21): 2}  # (Nq, Nk): launches per forward
+
+
+def _subs(**consts: int) -> list:
+    return [(rf"constexpr int {name} = \d+;", f"constexpr int {name} = {value};")
+            for name, value in consts.items()]
+
+
+def _drop(line: str, repl: str) -> list:
+    return [(re.escape(line), repl)]
+
+
+VARIANTS = {
+    ("stem", "bfloat16"): {
+        "source": [],
+        "tile_4x64": _subs(kGTH=4, kGTW=64),
+        "tile_2x128": _subs(kGTH=2, kGTW=128),
+        # the gathers and ldmatrix feed only the products, so they go too
+        "no_gather_mma": _drop("mma_bf16(acc[mt][j], a, bf[j][0], bf[j][1]);", "(void)a;"),
+        "no_global_loads": (_drop("rw[it] = e < kCout * kTaps ? w[e] : 0;", "rw[it] = e & 7;")
+                            + _drop("rp[it] = in ? xn[c * sc + ih * sh + iw * sw] : 0;",
+                                    "rp[it] = in;")),
+        "no_output_store": _drop("*reinterpret_cast<uint4*>(dst) = "
+                                 "*reinterpret_cast<const uint4*>(src);",
+                                 "if (src[0] == 0x7fff) dst[0] = 1;"),
+    },
+    ("stem", "float32"): {
+        "source": [],
+        "tile_4x64": _subs(kFTH=4, kFTW=64),
+        "ks_unroll_1": _drop("#pragma unroll 4\n  for (int ks = 0;",
+                             "#pragma unroll 1\n  for (int ks = 0;"),
+        "ks_unroll_full": _drop("#pragma unroll 4\n  for (int ks = 0;",
+                                "#pragma unroll\n  for (int ks = 0;"),
+        # the gathers, splits and fragment loads feed only the products
+        "no_gather_mma": _drop("mma_tf32x3(acc[mt][j], ah, al, bh[j], bl[j]);",
+                               "(void)ah, (void)al;"),
+        "no_global_loads": (_drop("rw[it][reg] = f < kFrags && kr < kTaps ? "
+                                  "w[(oc + 8 * (reg & 1)) * kTaps + kr] : 0.f;",
+                                  "rw[it][reg] = f & 7;")
+                            + _drop("rp[it] = in ? xn[c * sc + ih * sh + iw * sw] : 0.f;",
+                                    "rp[it] = in;")),
+        "no_output_store": _drop("*reinterpret_cast<float4*>(dst) = "
+                                 "*reinterpret_cast<const float4*>(src);",
+                                 "if (src[0] == 1234.5f) dst[0] = 1.f;"),
+    },
+    ("attention", "float32"): {
+        "source": [],
+        # keys per warp and pass (the bf16 kernel, which shares the tiling, changes too)
+        "slice_32": _subs(kKeyBlocks=2),
+        "slice_16": _subs(kKeyBlocks=1),
+        # the slice's three 16-key blocks unrolled: three copies of the loop body
+        "kb_unrolled": _drop("#pragma unroll 1\n    for (int kb16 = 0; kb16 < blocks; ++kb16) {",
+                             "#pragma unroll\n    for (int kb16 = 0; kb16 < kKeyBlocks; ++kb16) {"
+                             "\n      if (kb16 >= blocks) break;"),
+        "kk_unroll_4": _drop("#pragma unroll\n      for (int kk = 0;",
+                             "#pragma unroll 4\n      for (int kk = 0;"),
+        # the fragment loads and splits feed only the products, so they go too
+        "no_mma": (_drop("mma_tf32x3(s[j], qh, ql, bh, bl);", "(void)qh, (void)ql;")
+                   + _drop("mma_tf32x3(acc[dt], ph, pl, bh, bl);", "(void)ph, (void)pl;")),
+        "no_kv_loads": (_drop("cp_async16(k_s + r * kKRow + c, kb + key * ksn + c, in);",
+                              "(void)key;")
+                        + _drop("cp_async16(v_s + r * kVRow + c, vb + key * vsn + c, in);", "")),
+    },
+    ("attention", "bfloat16"): {
+        "source": [],
+    },
+}
+
+
+def _entry(lib: ctypes.CDLL, kernel: str):
+    if kernel == "stem":
+        fn = lib.hmv_stem_conv
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                       + [ctypes.c_longlong] * 4 + [ctypes.c_void_p])
+    else:
+        fn = lib.hmv_attention_fwd
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                       + [ctypes.c_longlong] * 12 + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def build(kernel: str, variants: dict, out_dir: Path, against: Path | None = None) -> dict:
+    """Compile every variant, and the other checkout's source, in parallel;
+    {name: ctypes entry}."""
+    jobs = {}  # name: (directory holding the .cu and its headers, source text)
+    for name, subs in variants.items():
+        text = (_build._CSRC / f"{kernel}.cu").read_text()
+        for pattern, repl in subs:
+            text, n = re.subn(pattern, repl, text)
+            if n != 1:
+                raise RuntimeError(f"{name}: {pattern!r} matched {n} times in {kernel}.cu")
+        jobs[name] = (out_dir, _build._CSRC, text)
+    if against is not None:
+        csrc = against / "handmvnet_tpu_torch" / "csrc"
+        jobs["against"] = (out_dir / "against", csrc, (csrc / f"{kernel}.cu").read_text())
+    procs = {}
+    for name, (where, headers, text) in jobs.items():
+        where.mkdir(parents=True, exist_ok=True)
+        for header in headers.glob("*.cuh"):
+            (where / header.name).write_text(header.read_text())
+        (where / f"{name}.cu").write_text(text)
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(where / f"{name}.so"),
+               str(where / f"{name}.cu")]
+        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                       text=True)
+    entries = {}
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on variant {name}:\n{log}")
+        entries[name] = _entry(ctypes.CDLL(str(jobs[name][0] / f"{name}.so")), kernel)
+    return entries
+
+
+def _check(code: int) -> None:
+    if code != 0:
+        raise RuntimeError(f"launch failed: CUDA error {code}")
+
+
+def stem_cases(entries: dict, dtype) -> tuple[dict, dict, float]:
+    """{name: call} for each variant and F.conv2d, {name: max error}, max|ref|."""
+    g = torch.Generator("cuda").manual_seed(0)
+    x = torch.randn(8, 256, 256, 3, generator=g, device="cuda").to(dtype).permute(0, 3, 1, 2)
+    w = (torch.randn(64, 3, 7, 7, generator=g, device="cuda") * 0.05).to(dtype)
+    ref = stem_conv_plain(x, w)
+    fns, errs = {}, {}
+    for name, fn in entries.items():
+        y = torch.empty((8, 64, 128, 128), dtype=dtype, device="cuda")
+
+        def call(fn=fn, y=y):
+            _check(fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), DTYPE_CODES[dtype], 8, 256, 256,
+                      *x.stride(), torch.cuda.current_stream().cuda_stream))
+
+        call()
+        torch.cuda.synchronize()
+        errs[name] = float((y.float() - ref.float()).abs().max())
+        fns[name] = call
+    fns["library"] = lambda: F.conv2d(x, w, stride=2, padding=3)
+    return fns, errs, float(ref.float().abs().max())
+
+
+def attention_cases(entries: dict, dtype) -> tuple[dict, dict, float]:
+    """{(name, shape): call} for each variant and SDPA at each (Nq, Nk),
+    {name: max error over the shapes}, max|ref|."""
+    g = torch.Generator("cuda").manual_seed(0)
+    scale = 128 ** -0.5
+    fns, errs, ref_max = {}, {}, 0.0
+    for nq, nk in ATTN_CALLS:
+        q, k, v = (torch.randn(1, n, 8, 128, generator=g, device="cuda").to(dtype).transpose(1, 2)
+                   for n in (nq, nk, nk))
+        ref = attention_plain(q, k, v, scale)
+        ref_max = max(ref_max, float(ref.float().abs().max()))
+        for name, fn in entries.items():
+            o = torch.empty((1, nq, 8, 128), dtype=dtype, device="cuda").transpose(1, 2)
+
+            def call(fn=fn, q=q, k=k, v=v, o=o, nq=nq, nk=nk):
+                _check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                          DTYPE_CODES[dtype], 1, 8, nq, nk, 128, *q.stride()[:3],
+                          *k.stride()[:3], *v.stride()[:3], *o.stride()[:3], scale,
+                          torch.cuda.current_stream().cuda_stream))
+
+            call()
+            torch.cuda.synchronize()
+            errs[name] = max(errs.get(name, 0.0), float((o.float() - ref.float()).abs().max()))
+            fns[(name, (nq, nk))] = call
+        fns[("library", (nq, nk))] = (
+            lambda q=q, k=k, v=v: F.scaled_dot_product_attention(q, k, v, scale=scale))
+    return fns, errs, ref_max
+
+
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("kernel", choices=("stem", "attention"))
+    parser.add_argument("--dtype", choices=sorted(DTYPES), default="float32")
+    parser.add_argument("--against", type=Path, default=None,
+                        help="another checkout whose kernel source is timed beside these")
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_variants: needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed",
+          flush=True)
+    dtype = DTYPES[args.dtype]
+    entries = build(args.kernel, VARIANTS[(args.kernel, args.dtype)],
+                    _build.BUILD_DIR / "variants" / f"{args.kernel}-{args.dtype}", args.against)
+    cases = stem_cases if args.kernel == "stem" else attention_cases
+    fns, errs, ref_max = cases(entries, dtype)
+
+    us = {key: float("inf") for key in fns}
+    for key in list(fns) + list(reversed(fns)) + list(fns):
+        us[key] = min(us[key], graph_ms(fns[key], calls=20, replays=20) * 1e3)
+    per_call = {}  # attention: {name: {(Nq, Nk): us}}, and us per forward (five calls)
+    if args.kernel == "attention":
+        for (name, shape), t in us.items():
+            per_call.setdefault(name, {})[shape] = t
+        us = {name: sum(ATTN_CALLS[s] * t for s, t in calls.items())
+              for name, calls in per_call.items()}
+    for name, t in us.items():
+        err = f" max_abs_err={errs[name]:.3e}" if name in errs else ""
+        calls = "".join(f" ({s[0]},{s[1]}) {c:.2f}" for s, c in per_call.get(name, {}).items())
+        print(f"{name}: {t:.2f} us{' per call' + calls if calls else ''}{err}", flush=True)
+    print(json.dumps({"device": torch.cuda.get_device_name(0), "kernel": args.kernel,
+                      "dtype": args.dtype, "us": us, "max_abs_err": errs,
+                      "max_abs_ref": ref_max,
+                      "per_call_us": {name: {f"{s[0]},{s[1]}": c for s, c in calls.items()}
+                                      for name, calls in per_call.items()}}))
+
+if __name__ == "__main__":
+    main()

@@ -45,8 +45,8 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float) -> torch.Tensor:
     """Multi-head attention core. q: [B, H, Nq, D]; k, v: [B, H, Nk, D] ->
     [B, H, Nq, D]. CPU tensors take ``attention_plain``; CUDA tensors launch
-    the kernel (f32 or bf16, D = 128, any strides with a contiguous last dim;
-    in bf16 every row must start on 16 bytes) or raise."""
+    the kernel (f32 or bf16, D = 128, any strides with a contiguous last dim
+    and every row starting on 16 bytes) or raise."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v, scale)
     if q.device.type != "cuda":

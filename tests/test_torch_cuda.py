@@ -8,6 +8,8 @@ comparisons at the main path's shapes and times them.
 Tolerances (max |kernel - plain|):
   fp32 attention  2e-5, tests/test_pallas_attention.py's forward tolerance;
   fp32 stem       1e-5 * max|plain|: 147-term f32 sums in another order;
+                  both fp32 kernels run their products in 3xTF32, which
+                  keeps these (tests/test_torch_tf32x3.py emulates it);
   bf16 stem       2^-6 * max|plain|: both sides round one f32 sum of bf16
                   products to bf16, so they differ by an ulp or two of the
                   largest value;
@@ -43,7 +45,7 @@ def _tol(dtype, ref, fp32_tol):
     return fp32_tol if dtype == torch.float32 else 2.0 ** -6 * float(ref.abs().max())
 
 
-# the main path's (Nq, Nk) at batch 1, then the bf16 kernel's edges: a full
+# the main path's (Nq, Nk) at batch 1, then the kernels' edges: a full
 # and a ragged 16-row query tile; Nk = 5 leaves three of its four warps
 # without keys, Nk = 300 takes two passes over each warp's key slice; batch 2
 # walks the batch stride
@@ -68,11 +70,12 @@ def test_attention_kernel_matches_plain(card, dtype, batch, nq, nk):
     assert err <= _tol(dtype, ref.float(), 2e-5), err
 
 
-def test_attention_bf16_refuses_unaligned_rows(card):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_attention_refuses_unaligned_rows(card, dtype):
     """cp.async needs 16-byte rows: a row stride of 129 elements is refused,
     not computed some other way."""
-    q = torch.randn(1, 8, 21, 129, device=card, dtype=torch.bfloat16)[..., :128]
-    k = torch.randn(1, 8, 21, 128, device=card, dtype=torch.bfloat16)
+    q = torch.randn(1, 8, 21, 129, device=card, dtype=dtype)[..., :128]
+    k = torch.randn(1, 8, 21, 128, device=card, dtype=dtype)
     with pytest.raises(RuntimeError, match="CUDA error"):
         fused_attention(q, k, k, 0.1)
 

@@ -1,0 +1,103 @@
+"""The precision argument of the fp32 kernels, checked on the CPU.
+
+Both fp32 CUDA kernels (csrc/attention.cu, csrc/stem.cu) run every product
+on the tensor cores in 3xTF32 (csrc/mma.cuh): each f32 operand x is split into
+hi = tf32(x) and lo = tf32(x - hi), and a b is taken as lo_a hi_b + hi_a lo_b
++ hi_a hi_b in one f32 accumulator, 8 terms of k at a time. Here numpy
+emulates that arithmetic (cvt.rna.tf32.f32 and the three-product split sum)
+at the main path's attention shapes and a small stem, and holds it against
+the JAX package's Pallas kernels in interpret mode at the port's fp32
+tolerances: attention 2e-5 absolute, stem 1e-5 x max|ref|. One TF32 product
+alone (hi_a hi_b) misses both; its error is printed beside each case
+(``pytest -s``) and asserted to exceed the tolerance, so the test also shows
+why the split is needed. The card holds the kernels themselves against the
+plain versions at the same tolerances (tests/test_torch_cuda.py,
+chip_smoke.py).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from handmvnet_tpu.ops.pallas.attention import fused_attention as jax_fused_attention
+from handmvnet_tpu.ops.pallas.stem import stem_s2d_fused
+
+K_STEP = 8  # k of one mma.m16n8k8
+LOG2E = np.float32(1.4426950408889634)
+
+
+def tf32(x: np.ndarray) -> np.ndarray:
+    """cvt.rna.tf32.f32: round to nearest, ties away from zero, to 10
+    mantissa bits (the 13 low bits cleared). Finite inputs."""
+    bits = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def tf32_matmul(a: np.ndarray, b: np.ndarray, split: bool) -> np.ndarray:
+    """a [..., M, K] @ b [..., K, N] as the tensor cores take it: per step of
+    8 k, each TF32 product summed exactly and added to an f32 accumulator.
+    split: 3xTF32 (lo_a hi_b, hi_a lo_b, hi_a hi_b); else hi_a hi_b alone."""
+    a, b = a.astype(np.float32), b.astype(np.float32)
+    a_hi, b_hi = tf32(a), tf32(b)
+    a_lo, b_lo = tf32(a - a_hi), tf32(b - b_hi)
+    terms = [(a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi)] if split else [(a_hi, b_hi)]
+    acc = np.zeros(a.shape[:-1] + b.shape[-1:], np.float32)
+    for k0 in range(0, a.shape[-1], K_STEP):
+        for x, y in terms:
+            step = x[..., k0:k0 + K_STEP].astype(np.float64) @ y[..., k0:k0 + K_STEP, :]
+            acc = (acc + step).astype(np.float32)
+    return acc
+
+
+def attention_emulated(q, k, v, scale, split):
+    """The fp32 attention kernel's arithmetic: S = Q K^T and O = P V in
+    (3x)TF32, the softmax in f32 with exp2 of log2-scaled logits, O / l."""
+    s = tf32_matmul(q, np.swapaxes(k, -1, -2), split) * (np.float32(scale) * LOG2E)
+    p = np.exp2(s - s.max(axis=-1, keepdims=True)).astype(np.float32)
+    return tf32_matmul(p, v, split) / p.sum(axis=-1, keepdims=True, dtype=np.float32)
+
+
+def stem_emulated(x, kernel, split):
+    """The fp32 stem kernel's arithmetic: the 7x7 / stride 2 / pad 3 conv as
+    im2col [pixels, K] x W^T [K, 64], K = the 147 taps in (c, kh, kw) order
+    padded with zeros to 152. x [N, H, W, 3] NHWC, kernel [7, 7, 3, 64] HWIO."""
+    n, h, w, _ = x.shape
+    ho, wo = (h + 1) // 2, (w + 1) // 2
+    xp = np.pad(x, ((0, 0), (3, 4), (3, 4), (0, 0)))
+    taps = [xp[:, kh:kh + 2 * ho:2, kw:kw + 2 * wo:2, c]
+            for c in range(3) for kh in range(7) for kw in range(7)]
+    cols = np.stack(taps + [np.zeros_like(taps[0])] * 5, axis=-1)  # [N, Ho, Wo, 152]
+    weights = np.transpose(kernel, (3, 2, 0, 1)).reshape(64, 147)  # OIHW rows
+    weights = np.concatenate([weights, np.zeros((64, 5), np.float32)], axis=1)
+    return tf32_matmul(cols.reshape(-1, 152), weights.T, split).reshape(n, ho, wo, 64)
+
+
+CASES = [("attention", (168, 168)), ("attention", (21, 147)), ("attention", (21, 21)),
+         ("stem", (2, 64, 64))]
+
+
+@pytest.mark.parametrize("kernel,shape", CASES, ids=[f"{k}-{'x'.join(map(str, s))}"
+                                                     for k, s in CASES])
+def test_tf32x3_holds_the_fp32_tolerance(kernel, shape):
+    rng = np.random.default_rng(sum(shape))
+    if kernel == "attention":
+        nq, nk = shape
+        q, k, v = (rng.normal(size=(1, 8, n, 128)).astype(np.float32) for n in (nq, nk, nk))
+        scale = 128 ** -0.5
+        ref = np.asarray(jax_fused_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                             scale, interpret=True))
+        tol = 2e-5  # tests/test_pallas_attention.py's forward tolerance
+        got = {split: attention_emulated(q, k, v, scale, split) for split in (True, False)}
+    else:
+        n, h, w = shape
+        x = rng.normal(size=(n, h, w, 3)).astype(np.float32)
+        kern = (rng.normal(size=(7, 7, 3, 64)) * 0.05).astype(np.float32)
+        ref = np.asarray(stem_s2d_fused(jnp.asarray(x), jnp.asarray(kern), interpret=True))
+        tol = 1e-5 * float(np.abs(ref).max())
+        got = {split: stem_emulated(x, kern, split) for split in (True, False)}
+    err = {split: float(np.abs(out - ref).max()) for split, out in got.items()}
+    print(f"{kernel} {shape}: 3xTF32 max_abs_err={err[True]:.3e}, "
+          f"1xTF32 max_abs_err={err[False]:.3e}, tolerance {tol:.3e}")
+    assert got[True].shape == ref.shape
+    assert err[True] <= tol, err
+    assert err[False] > tol, err  # one TF32 product would not do
