@@ -12,10 +12,15 @@ Phases; any failure exits nonzero and prints no result:
   4. time each kernel, its plain version and one library call of the same
      function (used nowhere in the port), beside the card's bound;
   5. drive the main path, the eval_fps protocol (HO3D release model, batch 1
-     x 8 views x 256^2) in fp32 and bf16, with the launch counters set to 0
-     just before and read just after: K1 must launch 5 times per forward and
-     K2 once; outputs finite and of the expected shapes; the fp32 kernel path
-     against the plain path on the card;
+     x 8 views x 256^2, each step the forward and then the mesh stage: SVD
+     alignment, adaptive IK and MANO LBS over the synthetic MANO model) in fp32
+     and bf16, with the launch counters set to 0 just before and read just
+     after: K1 must launch 5 times per forward and K2 once; outputs, vertices
+     [1, 778, 3] among them, finite and of the expected shapes; the same
+     protocol without the mesh stage (--no-vertices) for comparison; the mesh
+     stage on the card against the same function on the CPU, and one call of
+     it under the sync debug mode "error" (no synchronising copy, no read to
+     the host); the fp32 kernel path against the plain path on the card;
   6. a {"kernels": [...]} line, then the {"ok": true, ...} line last.
 
 fp32 means fp32 here: TF32 is switched off for matmuls and cuDNN convs.
@@ -50,6 +55,10 @@ ATTN_SHAPES = ((168, 168), (21, 147), (21, 21))  # (Nq, Nk) of the 5 fusion bloc
 ATTN_CALLS = {(168, 168): 2, (21, 147): 1, (21, 21): 2}  # launches per forward
 STEM_SHAPE = (8, 256, 256)  # b*v images of 256^2
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# mesh stage, card against CPU, on the same fp32 joints: vertices of |v| up to
+# ~400 mm, where the fp32 stage differs from float64 by up to ~5e-3 mm and the
+# card's kernels round in other orders than the CPU's
+MESH_ATOL_MM = 2e-2
 
 
 def fail(msg: str) -> None:
@@ -123,6 +132,27 @@ def plain_kernels(attention_ops, stem_ops):
         yield
     finally:
         attention_ops.fused_attention, stem_ops.stem_conv_nchw = saved
+
+
+def vertex_bound_mm(out_a: dict, out_b: dict) -> float:
+    """How far two steps' vertices may drift apart from their joints'
+    difference alone. The IK reads bone directions: a joint moved by d turns
+    a bone of length L by up to 2 d / L, and a vertex at distance R from the
+    wrist hangs off up to four such rotations (global + three chain levels),
+    so it moves by up to 8 d R / L. The random-weight model's joints lie
+    within ~0.02 mm of each other (bones of ~1e-3 mm), so this amplification
+    is ~1e5 on the main path; on hand-like joints (bones of ~30 mm) ~50."""
+    from handmvnet_tpu_torch.constants import HAND_EDGES
+
+    ja, jb = out_a["joints_cam"][0] * 1000.0, out_b["joints_cam"][0] * 1000.0
+    d = float((ja - jb).norm(dim=-1).max())
+    parent, child = zip(*HAND_EDGES)
+    bone = float((jb[list(child)] - jb[list(parent)]).norm(dim=-1).min())
+    reach = float((out_b["vertices"][0] - jb[0]).norm(dim=-1).max())
+    bound = 8.0 * d * reach / bone
+    print(f"   vertex bound: joints differ by d={d:.3e} mm, shortest bone L={bone:.3e} mm, "
+          f"reach R={reach:.1f} mm: 8 d R / L = {bound:.3e} mm", flush=True)
+    return bound
 
 
 def check_attention(attention_ops, dtype, gen) -> dict:
@@ -199,7 +229,8 @@ def main() -> None:
         fail(f"run from a checkout of the repository ({REPO} lacks the port)")
 
     from handmvnet_tpu_torch.config import Config
-    from handmvnet_tpu_torch.eval_fps import build_model, model_inputs, run_protocol
+    from handmvnet_tpu_torch.data.synthetic import synthetic_hand_joints
+    from handmvnet_tpu_torch.eval_fps import build_mesh_stage, protocol_step, run_protocol
     from handmvnet_tpu_torch.ops import _build
     from handmvnet_tpu_torch.ops import attention as attention_ops
     from handmvnet_tpu_torch.ops import stem as stem_ops
@@ -239,40 +270,75 @@ def main() -> None:
 
     # 5. the main path, through the entry point a user calls
     cfg = Config.from_yaml(CONFIG)
-    launches = {}
+    launches, joints_cam = {}, {}
     for name, dtype in DTYPES.items():
-        attention_ops.fused_attention.launches = 0
-        stem_ops.stem_conv_nchw.launches = 0
-        stats, out = run_protocol(cfg, views=8, dtype=dtype, warmup=WARMUP,
-                                  iters=ITERS, device="cuda", seed=0)
+        for with_vertices in (True, False):
+            attention_ops.fused_attention.launches = 0
+            stem_ops.stem_conv_nchw.launches = 0
+            stats, out = run_protocol(cfg, views=8, dtype=dtype, warmup=WARMUP, iters=ITERS,
+                                      device="cuda", seed=0, with_vertices=with_vertices)
+            torch.cuda.synchronize()
+            got = (attention_ops.fused_attention.launches, stem_ops.stem_conv_nchw.launches)
+            want = (5 * stats["forwards"], stats["forwards"])
+            step = "forward + mesh stage" if with_vertices else "forward only (--no-vertices)"
+            print(f"main path {name} {step}: fps={stats['fps']:.2f} p50_ms={stats['p50_ms']:.4f} "
+                  f"mean_ms={stats['mean_ms']:.4f} forwards={stats['forwards']} "
+                  f"launches K1={got[0]} K2={got[1]}", flush=True)
+            if got != want:
+                fail(f"{name} {step}: kernel launches {got}, expected {want} "
+                     "(5 and 1 per forward)")
+            shapes = {"joints_cam": (1, 21, 3), "joints_crop_img": (1, 8, 21, 2),
+                      "heatmap": (1, 8, 21, 32, 32)}
+            if with_vertices:
+                launches[dtype] = got
+                joints_cam[name] = out["joints_cam"]
+                shapes["vertices"] = (1, 778, 3)
+            elif "vertices" in out:
+                fail(f"{name}: --no-vertices returned vertices")
+            for key, shape in shapes.items():
+                if tuple(out[key].shape) != shape or out[key].dtype != torch.float32:
+                    fail(f"{name}: {key} is {tuple(out[key].shape)} {out[key].dtype}")
+                if out[key].device.type != "cuda" or not torch.isfinite(out[key]).all():
+                    fail(f"{name}: {key} is not finite on the card ({out[key].device})")
+
+    # the mesh stage on the card against the same port function on the CPU
+    mesh_cpu, mesh_gpu = build_mesh_stage("cpu"), build_mesh_stage("cuda")
+    mesh_inputs = {f"joints_cam * 1000 ({name})": j * 1000.0 for name, j in joints_cam.items()}
+    mesh_inputs["64 hand-like joints"] = synthetic_hand_joints(mesh_cpu.mano, 64, seed=1).cuda()
+    with torch.inference_mode():
+        for label, joints in mesh_inputs.items():
+            ref = mesh_cpu(joints.cpu())
+            got = mesh_gpu(joints)
+            err = max_err(got.cpu(), ref)
+            print(f"mesh stage card vs CPU, {label}: max_abs_err={err:.3e} mm "
+                  f"(max|v|={float(ref.abs().max()):.1f} mm) tol={MESH_ATOL_MM:.0e}", flush=True)
+            if got.device.type != "cuda" or not err <= MESH_ATOL_MM:
+                fail(f"mesh stage on the card disagrees with the CPU on {label}: {err} mm")
+        # no hidden host work: a synchronising copy or a read to the host raises
+        joints = mesh_inputs["64 hand-like joints"]
         torch.cuda.synchronize()
-        got = (attention_ops.fused_attention.launches, stem_ops.stem_conv_nchw.launches)
-        want = (5 * stats["forwards"], stats["forwards"])
-        launches[dtype] = got
-        print(f"main path {name}: fps={stats['fps']:.2f} p50_ms={stats['p50_ms']:.4f} "
-              f"mean_ms={stats['mean_ms']:.4f} forwards={stats['forwards']} "
-              f"launches K1={got[0]} K2={got[1]}", flush=True)
-        if got != want:
-            fail(f"{name}: kernel launches {got}, expected {want} (5 and 1 per forward)")
-        shapes = {"joints_cam": (1, 21, 3), "joints_crop_img": (1, 8, 21, 2),
-                  "heatmap": (1, 8, 21, 32, 32)}
-        for key, shape in shapes.items():
-            if tuple(out[key].shape) != shape or out[key].dtype != torch.float32:
-                fail(f"{name}: {key} is {tuple(out[key].shape)} {out[key].dtype}")
-            if not torch.isfinite(out[key]).all():
-                fail(f"{name}: {key} is not finite")
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = mesh_gpu(joints)
+        except RuntimeError as e:
+            fail(f"the mesh stage synchronises with the host: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        if got.device.type != "cuda":
+            fail(f"the mesh stage returned vertices on {got.device}")
+        print("mesh stage under sync debug mode 'error': no synchronising call", flush=True)
 
     # the fp32 kernel path against the plain path on the card, same weights
-    model = build_model(cfg, views=8, device="cuda", dtype=torch.float32, seed=0)
-    inputs = model_inputs(8, 256, "cuda", torch.float32, seed=0)
+    step = protocol_step(cfg, views=8, dtype=torch.float32, device="cuda", seed=0)
     with torch.inference_mode():
-        out_k = model(*inputs)
+        out_k = step()
         with plain_kernels(attention_ops, stem_ops):
-            out_p = model(*inputs)
+            out_p = step()
     # absolute tolerances: the paths differ only by the stem's and attention's
     # summation order; heatmaps (|h| < 1 here) feed soft-argmax at x1000,
     # whose coordinates are pixels of the 256^2 crop
-    path_tols = {"heatmap": 1e-4, "joints_crop_img": 5e-2, "joints_cam": 1e-4}
+    path_tols = {"heatmap": 1e-4, "joints_crop_img": 5e-2, "joints_cam": 1e-4,
+                 "vertices": MESH_ATOL_MM + vertex_bound_mm(out_k, out_p)}
     for key, tol in path_tols.items():
         err = max_err(out_k[key], out_p[key])
         print(f"fp32 kernel path vs plain path {key}: max_abs_err={err:.3e} "

@@ -1,10 +1,12 @@
 """Deterministic synthetic model inputs (the inference fields of
 handmvnet_tpu/data/synthetic.py::synthetic_batch, drawn from the same numpy
-generator in the same order, so one seed gives both packages equal inputs)."""
+generator in the same order, so one seed gives both packages equal inputs),
+and hand-like joints for the mesh stage."""
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def synthetic_batch(batch_size: int = 2, num_views: int = 5, image_size: int = 256,
@@ -23,3 +25,22 @@ def synthetic_batch(batch_size: int = 2, num_views: int = 5, image_size: int = 2
         np.array([600.0, 600.0, 320.0, 240.0], dtype=np.float32), (b, v, 1)
     ) + rng.normal(size=(b, v, 4)).astype(np.float32)
     return {"rgb": rgb, "bboxes": bboxes, "intrinsic": intr}
+
+
+def synthetic_hand_joints(mano, batch_size: int, seed: int = 0, angle: float = 0.3,
+                          noise_mm: float = 3.0, shift_mm: float = 100.0) -> torch.Tensor:
+    """Hand-like joints [b, 21, 3] float32 in mm, on the CPU: ``mano`` (a
+    ManoLayer on the CPU) posed with random axis-angle rotations (each
+    component N(0, angle) rad), Gaussian noise of ``noise_mm`` on every joint
+    but the wrist, then a random rotation and a shift of N(0, shift_mm)."""
+    rng = np.random.default_rng(seed)
+    pose = torch.from_numpy((rng.normal(size=(batch_size, 48)) * angle).astype(np.float32))
+    with torch.no_grad():
+        _, joints = mano.from_axis_angle(pose)
+    noise = rng.normal(size=(batch_size, 21, 3)) * noise_mm
+    noise[:, 0] = 0.0
+    q, _ = np.linalg.qr(rng.normal(size=(batch_size, 3, 3)))
+    q *= np.sign(np.linalg.det(q))[:, None, None]  # proper rotations
+    shift = rng.normal(size=(batch_size, 1, 3)) * shift_mm
+    out = (joints.numpy() + noise) @ np.swapaxes(q, -1, -2) + shift
+    return torch.from_numpy(out.astype(np.float32))

@@ -1,17 +1,20 @@
 """Inference speed of the port on the card:
-``python -m handmvnet_tpu_torch.eval_fps [--config ...] [--views 8]``
+``python -m handmvnet_tpu_torch.eval_fps [--config ...] [--views 8] [--no-vertices]``
 
-The reference's eval_fps protocol without the mesh stage (the counterpart of
-``bench.py --no-vertices``): batch 1 x 8 views x 256^2 synthetic images
-through the HandMvNet forward, 100 warmup then 1000 timed forwards, in fp32
-and bf16.
-Weights are random from a numpy seed (normal * 0.05, BatchNorm variance 1),
-as bench.py makes them: values do not change the work. Prints one JSON line.
+The reference's eval_fps protocol (the counterpart of ``bench.py``): batch 1
+x 8 views x 256^2 synthetic images; each step is the HandMvNet forward, then
+the mesh stage (SVD alignment, adaptive IK, MANO LBS) on ``joints_cam * 1000``
+with the synthetic MANO model standing in for the licensed one, as bench.py
+does. 100 warmup then 1000 timed steps, in fp32 and bf16; ``--no-vertices``
+times the forward alone. Weights are random from a numpy seed (normal * 0.05,
+BatchNorm variance 1), as bench.py makes them: values do not change the work.
+Prints one JSON line.
 
 Two numbers per dtype, both from CUDA events on the card:
-  * p50_ms: median latency of one request, each forward waited for alone;
-  * fps: frames per second over back-to-back forwards with one wait at the end.
-fp32 runs in full fp32 (TF32 off for matmuls and cuDNN convs).
+  * p50_ms: median latency of one request, each step waited for alone;
+  * fps: frames per second over back-to-back steps with one wait at the end.
+fp32 runs in full fp32 (TF32 off for matmuls and cuDNN convs); the mesh stage
+runs in fp32 in both dtypes, since joints_cam is fp32.
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ import torch
 from handmvnet_tpu_torch.config import Config
 from handmvnet_tpu_torch.data.synthetic import synthetic_batch
 from handmvnet_tpu_torch.models.handmvnet import HandMvNet
+from handmvnet_tpu_torch.models.joints_to_vertices import JointsToVertices, joints_to_vertices_fn
+from handmvnet_tpu_torch.models.mano import ManoLayer, synthetic_mano_model
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -68,6 +73,32 @@ def model_inputs(views: int, image_size: int, device: str, dtype: torch.dtype,
     )
 
 
+def build_mesh_stage(device: str = "cuda") -> JointsToVertices:
+    """The protocol's mesh stage on ``device``: joints_to_vertices_fn (fast,
+    fused SVD) over the synthetic MANO model, as bench.py builds it."""
+    return joints_to_vertices_fn(ManoLayer(synthetic_mano_model()).to(device))
+
+
+def protocol_step(cfg: Config, views: int = 8, image_size: int = 256,
+                  dtype: torch.dtype = torch.float32, device: str = "cuda", seed: int = 0,
+                  with_vertices: bool = True):
+    """The timed step as a function of no arguments: the forward on one
+    request, then, with ``with_vertices``, the mesh stage on its joints_cam
+    (m -> mm). Returns the forward's outputs, plus ``vertices`` [1, 778, 3]
+    mm when the mesh stage ran. Call it under ``torch.inference_mode()``."""
+    model = build_model(cfg, views, image_size, device, dtype, seed)
+    inputs = model_inputs(views, image_size, device, dtype, seed)
+    j2v = build_mesh_stage(device) if with_vertices else None
+
+    def step() -> dict:
+        out = model(*inputs)
+        if j2v is not None:
+            out["vertices"] = j2v(out["joints_cam"] * 1000.0)
+        return out
+
+    return step
+
+
 def _timer(device: torch.device):
     """(mark, elapsed_ms): CUDA events on the card, the host clock on CPU."""
     if device.type == "cuda":
@@ -90,30 +121,31 @@ def _timer(device: torch.device):
 
 def run_protocol(cfg: Config, views: int = 8, image_size: int = 256,
                  dtype: torch.dtype = torch.float32, warmup: int = 100, iters: int = 1000,
-                 device: str = "cuda", seed: int = 0) -> tuple[dict, dict]:
-    """Time the forward. Returns (stats, outputs of the last forward); stats
-    holds fps, p50_ms, mean_ms, the number of forwards run, and the device."""
+                 device: str = "cuda", seed: int = 0,
+                 with_vertices: bool = True) -> tuple[dict, dict]:
+    """Time the protocol's step (``protocol_step``). Returns (stats, outputs
+    of the last step); stats holds fps, p50_ms, mean_ms, the number of
+    forwards run, whether the step included the mesh stage, and the device."""
     dev = torch.device(device)
-    model = build_model(cfg, views, image_size, device, dtype, seed)
-    inputs = model_inputs(views, image_size, device, dtype, seed)
+    step = protocol_step(cfg, views, image_size, dtype, device, seed, with_vertices)
     mark, elapsed_ms = _timer(dev)
 
     with torch.inference_mode():
         for _ in range(warmup):
-            out = model(*inputs)
+            out = step()
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
         lat = []
         for _ in range(iters):
             t0 = mark()
-            out = model(*inputs)
+            out = step()
             t1 = mark()
             lat.append(elapsed_ms(t0, t1))
 
         t0 = mark()
         for _ in range(iters):
-            out = model(*inputs)
+            out = step()
         t1 = mark()
         total_ms = elapsed_ms(t0, t1)
 
@@ -126,6 +158,7 @@ def run_protocol(cfg: Config, views: int = 8, image_size: int = 256,
         "p50_ms": float(np.percentile(lat, 50)),
         "mean_ms": float(np.mean(lat)),
         "forwards": warmup + 2 * iters,
+        "with_vertices": with_vertices,
         "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
     }
     return stats, out
@@ -138,6 +171,8 @@ def main(argv=None) -> None:
     parser.add_argument("--iters", type=int, default=1000)
     parser.add_argument("--warmup", type=int, default=100)
     parser.add_argument("--device", default="cuda")
+    parser.add_argument("--no-vertices", action="store_true",
+                        help="time the forward alone, without the mesh stage")
     args = parser.parse_args(argv)
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -146,7 +181,8 @@ def main(argv=None) -> None:
     record = {}
     for name, dtype in DTYPES.items():
         stats, _ = run_protocol(cfg, args.views, dtype=dtype, warmup=args.warmup,
-                                iters=args.iters, device=args.device)
+                                iters=args.iters, device=args.device,
+                                with_vertices=not args.no_vertices)
         record[name] = stats
     print(json.dumps(record))
 

@@ -1,5 +1,6 @@
-"""Crop geometry and the crop-FoV encoding (counterpart of the functions of
-handmvnet_tpu/ops/geometry.py that the inference path uses)."""
+"""Crop geometry, the crop-FoV encoding and the joint mask of the metrics
+(counterpart of the functions of handmvnet_tpu/ops/geometry.py that the
+inference and evaluation paths use)."""
 
 from __future__ import annotations
 
@@ -42,3 +43,10 @@ def fov_angles(centered: torch.Tensor, fx: torch.Tensor, fy: torch.Tensor) -> to
          torch.atan(centered[..., 1] / fy[..., None])],
         dim=-1,
     )
+
+
+def mask_joints(joints: torch.Tensor, invisible_mask: torch.Tensor) -> torch.Tensor:
+    """Zero out joints flagged invisible. invisible_mask: [..., J] bool
+    (True = invisible); joints: [..., J, D]."""
+    keep = torch.logical_not(invisible_mask).to(joints.dtype)
+    return joints * keep[..., None]

@@ -1,15 +1,19 @@
-"""Where the forward's time goes on the card:
-``python -m handmvnet_tpu_torch.profile_forward [--config ...] [--views 8]``
+"""Where the protocol step's time goes on the card:
+``python -m handmvnet_tpu_torch.profile_forward [--config ...] [--views 8] [--no-vertices]``
 
-For fp32 and bf16, the eval_fps model and inputs (batch 1 x 8 views x 256^2,
-random weights), and for each one JSON line with:
-  * wall_p50_ms: host clock around one eager forward that is waited for;
-  * device_ms: the summed device time of the kernels (and copies) one forward
-    runs, from torch.profiler, and how many there are;
+For fp32 and bf16, the step that eval_fps times (batch 1 x 8 views x 256^2,
+random weights: the forward, then the mesh stage unless ``--no-vertices``),
+and for each one JSON line with:
+  * wall_p50_ms: host clock around one eager step that is waited for;
+  * device_ms: the summed device time of the kernels (and copies) one step
+    runs, from torch.profiler, and how many there are
+    (device_ops_per_forward);
   * busy: device_ms / wall_p50_ms, the share of the request the card works;
-  * graph_ms: the same forward captured once in a CUDA graph and replayed,
+  * graph_ms: the same step captured once in a CUDA graph and replayed,
     i.e. the card's time when the host does not hold it back;
-  * top: the kernels with the most device time per forward.
+  * top: the kernels with the most device time per step.
+Then one line for the mesh stage alone at batch 1 (fp32, hand-like joints):
+its device ops, device ms, eager wall ms and CUDA-graph ms per call.
 fp32 runs in full fp32 (TF32 off).
 """
 
@@ -25,7 +29,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from handmvnet_tpu_torch.config import Config
-from handmvnet_tpu_torch.eval_fps import DTYPES, build_model, model_inputs
+from handmvnet_tpu_torch.data.synthetic import synthetic_hand_joints
+from handmvnet_tpu_torch.eval_fps import DTYPES, build_mesh_stage, protocol_step
 
 
 def graph_ms(fn, calls: int = 1, replays: int = 50) -> float:
@@ -50,24 +55,24 @@ def graph_ms(fn, calls: int = 1, replays: int = 50) -> float:
     return start.elapsed_time(end) / (replays * calls)
 
 
-def profile_forward(cfg: Config, views: int, dtype: torch.dtype, warmup: int = 10,
-                    iters: int = 50, profiled: int = 10, top: int = 12) -> dict:
-    model = build_model(cfg, views, device="cuda", dtype=dtype)
-    inputs = model_inputs(views, 256, "cuda", dtype)
+def profile_calls(fn, warmup: int = 10, iters: int = 50, profiled: int = 10,
+                  top: int = 12) -> dict:
+    """wall_p50_ms, device_ms, device_ops, busy, graph_ms and the top kernels
+    of one call of ``fn`` on the card."""
     with torch.inference_mode():
         for _ in range(warmup):
-            model(*inputs)
+            fn()
         torch.cuda.synchronize()
         wall = []
         for _ in range(iters):
             t0 = time.perf_counter()
-            model(*inputs)
+            fn()
             torch.cuda.synchronize()
             wall.append((time.perf_counter() - t0) * 1e3)
 
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(profiled):
-                model(*inputs)
+                fn()
             torch.cuda.synchronize()
         per_name: dict[str, float] = defaultdict(float)
         n_device = 0
@@ -75,20 +80,53 @@ def profile_forward(cfg: Config, views: int, dtype: torch.dtype, warmup: int = 1
             if ev.device_type == torch.autograd.DeviceType.CUDA:
                 per_name[ev.name] += ev.time_range.elapsed_us() / 1e3 / profiled
                 n_device += 1
-        graph = graph_ms(lambda: model(*inputs))
+        graph = graph_ms(fn)
 
     wall_p50 = float(np.percentile(wall, 50))
     device_ms = sum(per_name.values()) if n_device else None
     return {
-        "dtype": str(dtype).removeprefix("torch."),
-        "views": views,
-        "device": torch.cuda.get_device_name(0),
         "wall_p50_ms": wall_p50,
         "device_ms": device_ms,
-        "device_ops_per_forward": n_device / profiled,
+        "device_ops": n_device / profiled,
         "busy": device_ms / wall_p50 if device_ms is not None else None,
         "graph_ms": graph,
         "top": sorted(([name, ms] for name, ms in per_name.items()), key=lambda t: -t[1])[:top],
+    }
+
+
+def profile_forward(cfg: Config, views: int, dtype: torch.dtype,
+                    with_vertices: bool = True) -> dict:
+    rec = profile_calls(protocol_step(cfg, views, dtype=dtype, device="cuda",
+                                      with_vertices=with_vertices))
+    return {
+        "dtype": str(dtype).removeprefix("torch."),
+        "views": views,
+        "with_vertices": with_vertices,
+        "device": torch.cuda.get_device_name(0),
+        "wall_p50_ms": rec["wall_p50_ms"],
+        "device_ms": rec["device_ms"],
+        "device_ops_per_forward": rec["device_ops"],
+        "busy": rec["busy"],
+        "graph_ms": rec["graph_ms"],
+        "top": rec["top"],
+    }
+
+
+def profile_mesh(batch: int = 1) -> dict:
+    """The mesh stage alone on ``batch`` hand-like joints (fp32)."""
+    j2v = build_mesh_stage("cpu")
+    joints = synthetic_hand_joints(j2v.mano, batch, seed=0).cuda()
+    j2v.to("cuda")
+    rec = profile_calls(lambda: j2v(joints))
+    return {
+        "stage": "mesh",
+        "batch": batch,
+        "device": torch.cuda.get_device_name(0),
+        "device_ops": rec["device_ops"],
+        "device_ms": rec["device_ms"],
+        "eager_ms": rec["wall_p50_ms"],
+        "graph_ms": rec["graph_ms"],
+        "top": rec["top"],
     }
 
 
@@ -96,6 +134,8 @@ def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--config", default="configs/release/HO3D_HandMvNet.yaml")
     parser.add_argument("--views", type=int, default=8)
+    parser.add_argument("--no-vertices", action="store_true",
+                        help="profile the forward alone, without the mesh stage")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_forward measures the card: no CUDA device")
@@ -103,7 +143,9 @@ def main(argv=None) -> None:
     torch.backends.cudnn.allow_tf32 = False
     cfg = Config.from_yaml(args.config)
     for dtype in DTYPES.values():
-        print(json.dumps(profile_forward(cfg, args.views, dtype)), flush=True)
+        print(json.dumps(profile_forward(cfg, args.views, dtype, not args.no_vertices)),
+              flush=True)
+    print(json.dumps(profile_mesh()), flush=True)
 
 
 if __name__ == "__main__":

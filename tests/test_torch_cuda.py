@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, and the mesh
+stage against the CPU, on the card.
 
 Marked ``cuda``: they skip on a machine without a CUDA device (a kernel
 written in CUDA has no CPU mode). On a host with an NVIDIA Hopper GPU:
@@ -113,3 +114,61 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(card):
     with pytest.raises(TypeError):
         stem_conv_nchw(x, torch.randn(64, 3, 7, 7, device=card, dtype=torch.bfloat16))
 
+
+
+# The mesh stage (SVD alignment, adaptive IK, MANO LBS) has no kernel of its
+# own: these hold its PyTorch ops on the card against the same function on
+# the CPU. Tolerance 2e-2 mm on vertices of |v| up to ~400 mm: the fp32 stage
+# differs from float64 by up to ~5e-3 mm on such inputs, and the card's
+# kernels round in other orders than the CPU's.
+MESH_ATOL_MM = 2e-2
+
+
+def _mesh_stages(card):
+    from handmvnet_tpu_torch.eval_fps import build_mesh_stage
+
+    return build_mesh_stage("cpu"), build_mesh_stage(str(card))
+
+
+@pytest.mark.parametrize("batch", [1, 64])
+def test_mesh_stage_on_card_matches_cpu(card, batch):
+    from handmvnet_tpu_torch.data.synthetic import synthetic_hand_joints
+
+    cpu, gpu = _mesh_stages(card)
+    joints = synthetic_hand_joints(cpu.mano, batch, seed=batch)
+    with torch.inference_mode():
+        ref = cpu(joints)
+        out = gpu(joints.to(card))
+    assert out.device.type == "cuda" and out.shape == ref.shape == (batch, 778, 3)
+    assert torch.isfinite(out).all()
+    err = float((out.cpu() - ref).abs().max())
+    assert err <= MESH_ATOL_MM, err
+
+
+def test_mano_layer_buffers_move_to_card(card):
+    from handmvnet_tpu_torch.models.joints_to_vertices import joints_to_vertices_fn
+    from handmvnet_tpu_torch.models.mano import ManoLayer, synthetic_mano_model
+
+    j2v = joints_to_vertices_fn(ManoLayer(synthetic_mano_model()).to(card))
+    buffers = dict(j2v.named_buffers())
+    assert {"template", "mano.v_template", "mano.posedirs", "mano.tip_ids"} <= set(buffers)
+    assert all(b.device.type == "cuda" for b in buffers.values()), {
+        k: b.device for k, b in buffers.items()}
+
+
+def test_mesh_stage_does_no_host_work(card):
+    """After warmup, one call on CUDA inputs runs under the sync debug mode's
+    "error": a synchronising copy or a read to the host would raise."""
+    from handmvnet_tpu_torch.data.synthetic import synthetic_hand_joints
+
+    cpu, gpu = _mesh_stages(card)
+    joints = synthetic_hand_joints(cpu.mano, 2, seed=0).to(card)
+    with torch.inference_mode():
+        gpu(joints)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = gpu(joints)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert out.device.type == "cuda"
