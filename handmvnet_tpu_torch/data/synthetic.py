@@ -27,20 +27,23 @@ def synthetic_batch(batch_size: int = 2, num_views: int = 5, image_size: int = 2
     return {"rgb": rgb, "bboxes": bboxes, "intrinsic": intr}
 
 
-def synthetic_hand_joints(mano, batch_size: int, seed: int = 0, angle: float = 0.3,
-                          noise_mm: float = 3.0, shift_mm: float = 100.0) -> torch.Tensor:
+# synthetic_hand_joints: rad of each axis-angle component, mm of joint
+# noise, mm of the rigid shift (each the deviation of a normal draw)
+HAND_POSE_RAD, HAND_NOISE_MM, HAND_SHIFT_MM = 0.3, 3.0, 100.0
+
+
+def synthetic_hand_joints(mano, batch_size: int, seed: int = 0) -> torch.Tensor:
     """Hand-like joints [b, 21, 3] float32 in mm, on the CPU: ``mano`` (a
-    ManoLayer on the CPU) posed with random axis-angle rotations (each
-    component N(0, angle) rad), Gaussian noise of ``noise_mm`` on every joint
-    but the wrist, then a random rotation and a shift of N(0, shift_mm)."""
+    ManoLayer on the CPU) posed with random axis-angle rotations, Gaussian
+    noise on every joint but the wrist, then a random rotation and shift."""
     rng = np.random.default_rng(seed)
-    pose = torch.from_numpy((rng.normal(size=(batch_size, 48)) * angle).astype(np.float32))
+    pose = torch.from_numpy((rng.normal(size=(batch_size, 48)) * HAND_POSE_RAD).astype(np.float32))
     with torch.no_grad():
         _, joints = mano.from_axis_angle(pose)
-    noise = rng.normal(size=(batch_size, 21, 3)) * noise_mm
+    noise = rng.normal(size=(batch_size, 21, 3)) * HAND_NOISE_MM
     noise[:, 0] = 0.0
     q, _ = np.linalg.qr(rng.normal(size=(batch_size, 3, 3)))
     q *= np.sign(np.linalg.det(q))[:, None, None]  # proper rotations
-    shift = rng.normal(size=(batch_size, 1, 3)) * shift_mm
+    shift = rng.normal(size=(batch_size, 1, 3)) * HAND_SHIFT_MM
     out = (joints.numpy() + noise) @ np.swapaxes(q, -1, -2) + shift
     return torch.from_numpy(out.astype(np.float32))

@@ -30,7 +30,7 @@ import torch
 from handmvnet_tpu_torch.config import Config
 from handmvnet_tpu_torch.data.synthetic import synthetic_batch
 from handmvnet_tpu_torch.models.handmvnet import HandMvNet
-from handmvnet_tpu_torch.models.joints_to_vertices import JointsToVertices, joints_to_vertices_fn
+from handmvnet_tpu_torch.models.joints_to_vertices import joints_to_vertices_fn
 from handmvnet_tpu_torch.models.mano import ManoLayer, synthetic_mano_model
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -73,7 +73,7 @@ def model_inputs(views: int, image_size: int, device: str, dtype: torch.dtype,
     )
 
 
-def build_mesh_stage(device: str = "cuda") -> JointsToVertices:
+def build_mesh_stage(device: str = "cuda") -> torch.nn.Module:
     """The protocol's mesh stage on ``device``: joints_to_vertices_fn (fast,
     fused SVD) over the synthetic MANO model, as bench.py builds it."""
     return joints_to_vertices_fn(ManoLayer(synthetic_mano_model()).to(device))

@@ -26,7 +26,7 @@ from handmvnet_tpu_torch.ops.svd3 import svd3x3
 _ALIGN_JOINTS = (0, 9, 13)  # wrist, middle_mcp, ring_mcp
 
 
-class JointsToVertices(nn.Module):
+class _JointsToVertices(nn.Module):
     """joints [B, 21, 3] (mm) -> verts [B, 778, 3] (mm). The template and the
     anchor-joint ids are buffers on the MANO layer's device; runs in the
     joints' dtype (fp32 on the main path, in both serving dtypes)."""
@@ -81,7 +81,7 @@ class JointsToVertices(nn.Module):
 
 
 def joints_to_vertices_fn(mano: ManoLayer, fast_svd: bool = True,
-                          fused_svd: bool = True) -> JointsToVertices:
+                          fused_svd: bool = True) -> nn.Module:
     """The mesh stage as a callable module: joints [B, 21, 3] (mm) -> verts
     [B, 778, 3] (mm), on the device of ``mano``'s buffers.
 
@@ -89,4 +89,4 @@ def joints_to_vertices_fn(mano: ManoLayer, fast_svd: bool = True,
     polish; fused_svd=True batches the alignment and orientation
     decompositions into one call.
     """
-    return JointsToVertices(mano, fast_svd=fast_svd, fused_svd=fused_svd)
+    return _JointsToVertices(mano, fast_svd=fast_svd, fused_svd=fused_svd)

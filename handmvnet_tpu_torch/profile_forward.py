@@ -12,8 +12,8 @@ and for each one JSON line with:
   * graph_ms: the same step captured once in a CUDA graph and replayed,
     i.e. the card's time when the host does not hold it back;
   * top: the kernels with the most device time per step.
-Then one line for the mesh stage alone at batch 1 (fp32, hand-like joints):
-its device ops, device ms, eager wall ms and CUDA-graph ms per call.
+Then one line with the same keys for the mesh stage alone at batch 1 (fp32,
+hand-like joints), where wall_p50_ms is its eager time per call.
 fp32 runs in full fp32 (TF32 off).
 """
 
@@ -57,8 +57,8 @@ def graph_ms(fn, calls: int = 1, replays: int = 50) -> float:
 
 def profile_calls(fn, warmup: int = 10, iters: int = 50, profiled: int = 10,
                   top: int = 12) -> dict:
-    """wall_p50_ms, device_ms, device_ops, busy, graph_ms and the top kernels
-    of one call of ``fn`` on the card."""
+    """wall_p50_ms, device_ms, device_ops_per_forward, busy, graph_ms and the
+    top kernels of one call of ``fn`` on the card."""
     with torch.inference_mode():
         for _ in range(warmup):
             fn()
@@ -87,7 +87,7 @@ def profile_calls(fn, warmup: int = 10, iters: int = 50, profiled: int = 10,
     return {
         "wall_p50_ms": wall_p50,
         "device_ms": device_ms,
-        "device_ops": n_device / profiled,
+        "device_ops_per_forward": n_device / profiled,
         "busy": device_ms / wall_p50 if device_ms is not None else None,
         "graph_ms": graph,
         "top": sorted(([name, ms] for name, ms in per_name.items()), key=lambda t: -t[1])[:top],
@@ -96,38 +96,19 @@ def profile_calls(fn, warmup: int = 10, iters: int = 50, profiled: int = 10,
 
 def profile_forward(cfg: Config, views: int, dtype: torch.dtype,
                     with_vertices: bool = True) -> dict:
-    rec = profile_calls(protocol_step(cfg, views, dtype=dtype, device="cuda",
-                                      with_vertices=with_vertices))
-    return {
-        "dtype": str(dtype).removeprefix("torch."),
-        "views": views,
-        "with_vertices": with_vertices,
-        "device": torch.cuda.get_device_name(0),
-        "wall_p50_ms": rec["wall_p50_ms"],
-        "device_ms": rec["device_ms"],
-        "device_ops_per_forward": rec["device_ops"],
-        "busy": rec["busy"],
-        "graph_ms": rec["graph_ms"],
-        "top": rec["top"],
-    }
+    meta = {"dtype": str(dtype).removeprefix("torch."), "views": views,
+            "with_vertices": with_vertices, "device": torch.cuda.get_device_name(0)}
+    return {**meta, **profile_calls(protocol_step(cfg, views, dtype=dtype, device="cuda",
+                                                   with_vertices=with_vertices))}
 
 
-def profile_mesh(batch: int = 1) -> dict:
-    """The mesh stage alone on ``batch`` hand-like joints (fp32)."""
+def profile_mesh() -> dict:
+    """The mesh stage alone on one request's hand-like joints (fp32)."""
     j2v = build_mesh_stage("cpu")
-    joints = synthetic_hand_joints(j2v.mano, batch, seed=0).cuda()
+    joints = synthetic_hand_joints(j2v.mano, 1, seed=0).cuda()
     j2v.to("cuda")
-    rec = profile_calls(lambda: j2v(joints))
-    return {
-        "stage": "mesh",
-        "batch": batch,
-        "device": torch.cuda.get_device_name(0),
-        "device_ops": rec["device_ops"],
-        "device_ms": rec["device_ms"],
-        "eager_ms": rec["wall_p50_ms"],
-        "graph_ms": rec["graph_ms"],
-        "top": rec["top"],
-    }
+    meta = {"stage": "mesh", "batch": 1, "device": torch.cuda.get_device_name(0)}
+    return {**meta, **profile_calls(lambda: j2v(joints))}
 
 
 def main(argv=None) -> None:

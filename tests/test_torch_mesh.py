@@ -30,7 +30,6 @@ from handmvnet_tpu_torch import constants
 from handmvnet_tpu_torch.models import ik, mano
 from handmvnet_tpu_torch.models.joints_to_vertices import joints_to_vertices_fn
 from handmvnet_tpu_torch.ops import procrustes, small_linalg, svd3
-from test_mano_ik import make_hand_like_joints
 
 VERTS_ATOL_MM = 2e-2
 
@@ -48,11 +47,19 @@ def _rotations(rng, n: int) -> np.ndarray:
     return q * np.sign(np.linalg.det(q))[:, None, None]
 
 
+def _hand_like_joints(rng, template, jitter=3.0):
+    """Plausible hand: template joints + small noise (mm), as in
+    tests/test_mano_ik.py."""
+    noise = rng.normal(size=template.shape) * jitter
+    noise[0] = 0
+    return (template + noise).astype(np.float32)
+
+
 def _hand_joints(template: np.ndarray, n: int, seed: int) -> np.ndarray:
-    """Hand-like joints (tests/test_mano_ik.py) under a random rigid
-    transform each, so the alignment is not trivial."""
+    """Hand-like joints under a random rigid transform each, so the
+    alignment is not trivial."""
     rng = np.random.default_rng(seed)
-    joints = np.stack([make_hand_like_joints(rng, template, jitter=3.0) for _ in range(n)])
+    joints = np.stack([_hand_like_joints(rng, template, jitter=3.0) for _ in range(n)])
     joints = joints @ np.swapaxes(_rotations(rng, n), -1, -2) + rng.normal(size=(n, 1, 3)) * 30.0
     return joints.astype(np.float32)
 
@@ -227,7 +234,7 @@ def test_rodrigues_matches():
 @pytest.mark.parametrize("polish", [0, 2])
 def test_adaptive_ik_matches(layers, polish, with_r0):
     template = layers[0].joints_template()
-    targets = np.stack([make_hand_like_joints(np.random.default_rng(i), template)
+    targets = np.stack([_hand_like_joints(np.random.default_rng(i), template)
                         for i in range(6)])
     targets[0] = template  # the template itself: identity pose
     r0 = _rotations(np.random.default_rng(16), 6).astype(np.float32) if with_r0 else None
