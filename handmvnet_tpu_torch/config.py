@@ -1,8 +1,10 @@
 """Typed configuration (the port's copy of handmvnet_tpu/config.py).
 
 Frozen dataclasses that accept the release YAMLs (configs/release/*.yaml)
-verbatim through ``Config.from_yaml``. The inference path reads ``model`` and
-the image sizes of ``data``; the train fields are kept so that the YAMLs load.
+verbatim through ``Config.from_yaml``. Inference reads ``model`` and the
+image sizes of ``data``; training reads ``train`` and the batch size too.
+Fields the port does not use yet (the loader's, remat) are kept so that the
+YAMLs load.
 
 The YAML is read by a small parser of the block subset the configs use
 (nested mappings, lists of scalars, plain or quoted scalars), so that the
@@ -20,6 +22,13 @@ from typing import Any, Mapping, Sequence
 
 _INT = re.compile(r"^[-+]?[0-9]+$")
 _FLOAT = re.compile(r"^[-+]?([0-9]+\.[0-9]*|\.[0-9]+)([eE][-+]?[0-9]+)?$")
+
+# samples per split of each dataset (the reference's fixed epoch sizes)
+SPLIT_SIZES = {
+    "ho3d": {"train": 7718, "train+val": 9087, "val": 1369, "test": 2706},
+    "dexycb": {"train": 25588, "train+val": 28935, "val": 3347, "test": 4950},
+    "mvhand": {"train": 960, "train+val": 1200, "val": 240, "test": 480},
+}
 
 
 def _scalar(text: str) -> Any:
@@ -184,6 +193,26 @@ class Config:
     data: DataConfig = field(default_factory=DataConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+
+    @property
+    def auc_thresholds(self) -> tuple[float, float]:
+        """The dataset's PCK-AUC threshold range, metres."""
+        return {"dexycb": (0.0, 0.02), "ho3d": (0.0, 0.05), "mvhand": (0.0, 0.02)}[self.data.name]
+
+    @property
+    def root_idx(self) -> int:
+        """The dataset's root camera (the view whose frame the 3D labels use)."""
+        return {"ho3d": 0, "dexycb": 2, "mvhand": 3}[self.data.name]
+
+    def split_size(self, split: str) -> int:
+        """Samples in a split of the dataset: the reference's fixed epoch
+        sizes, which size every epoch and the LR milestones, with the
+        config's overrides; "train" includes "val" under add_val_to_train."""
+        sizes = dict(SPLIT_SIZES[self.data.name])
+        sizes.update(self.data.split_size_overrides or {})
+        if split == "train" and self.data.add_val_to_train:
+            split = "train+val"
+        return sizes[split]
 
     @staticmethod
     def from_yaml(path: str | Path) -> "Config":

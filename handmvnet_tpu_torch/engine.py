@@ -1,12 +1,15 @@
-"""Evaluation metric assembly (counterpart of the evaluation part of
-handmvnet_tpu/engine.py): the reference's per-batch metrics as one device
-computation, the labels in meters, and the MANO vertex map. The epoch loop,
-the averagers, the loggers and the checkpoint manager are not ported yet.
+"""Training and evaluation engine (counterpart of handmvnet_tpu/engine.py):
+the reference's per-batch metrics as one device computation, the labels in
+meters, the MANO vertex map, a metric averager that keeps its sums on the
+device, the JSONL logger, the best-on-val_mpjpe + last checkpoint manager
+and the evaluation pass. TensorBoard logging is not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Mapping
+import json
+from pathlib import Path
+from typing import Any, Callable, Dict, Iterable, Mapping
 
 import numpy as np
 import torch
@@ -14,6 +17,7 @@ import torch
 from handmvnet_tpu_torch import metrics as M
 from handmvnet_tpu_torch.config import Config
 from handmvnet_tpu_torch.ops.geometry import mask_joints
+from handmvnet_tpu_torch.train_step import eval_step
 
 
 def pose_metrics_device(
@@ -89,3 +93,136 @@ def make_vertices_fn(cfg: Config, device: str = "cuda") -> Callable | None:
     except (FileNotFoundError, OSError) as e:
         print(f"[warning] MANO model unavailable ({e}); skipping vertex metrics")
         return None
+
+
+class DeviceMetricAverager:
+    """Weighted running mean of metrics whose sums stay on the device: no
+    host read per update, one in ``result()``. Values are tensors (scalars
+    or vectors such as PCK curves, averaged elementwise)."""
+
+    def __init__(self) -> None:
+        self._sums: Dict[str, torch.Tensor] = {}
+        self._count = 0.0
+
+    def update(self, metrics: Mapping[str, torch.Tensor], weight: float = 1.0) -> None:
+        """weight: the batch's sample count, so that uneven batches do not
+        bias the mean."""
+        self._count += weight
+        for k, v in metrics.items():
+            v = v.detach().double() * weight
+            self._sums[k] = self._sums[k] + v if k in self._sums else v
+
+    def result(self) -> Dict[str, Any]:
+        if not self._sums:
+            return {}
+        flat = torch.cat([v.reshape(-1) for v in self._sums.values()]).cpu().numpy()
+        out, i = {}, 0
+        for k, v in self._sums.items():
+            avg = flat[i:i + v.numel()].reshape(v.shape) / self._count
+            i += v.numel()
+            out[k] = avg.tolist() if avg.ndim else float(avg)
+        return out
+
+
+class JsonlLogger:
+    """Append-only metrics log, one JSON object per line, echoed to stdout
+    (list values, such as PCK curves, only into the file)."""
+
+    def __init__(self, path: str | Path):
+        self.path = Path(path)
+        self.path.parent.mkdir(parents=True, exist_ok=True)
+
+    def log(self, record: Mapping[str, Any]) -> None:
+        with open(self.path, "a", encoding="utf-8") as f:
+            f.write(json.dumps(record, default=float) + "\n")
+        print(" ".join(f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
+                       for k, v in record.items() if not isinstance(v, (list, tuple))),
+              flush=True)
+
+
+def save_checkpoint(path: str | Path, state) -> None:
+    """model, optimizer and scheduler state_dicts and the step, in one file
+    written atomically."""
+    path = Path(path)
+    tmp = path.with_suffix(".tmp")
+    torch.save({"model": state.model.state_dict(), "optimizer": state.optimizer.state_dict(),
+                "scheduler": state.scheduler.state_dict(), "step": state.step}, tmp)
+    tmp.replace(path)
+
+
+def restore_checkpoint(path: str | Path, state):
+    """Load a ``save_checkpoint`` file into ``state`` (its tensors onto the
+    model's device) and return it."""
+    device = next(state.model.parameters()).device
+    ckpt = torch.load(path, map_location=device, weights_only=True)
+    state.model.load_state_dict(ckpt["model"])
+    state.optimizer.load_state_dict(ckpt["optimizer"])
+    state.scheduler.load_state_dict(ckpt["scheduler"])
+    state.step = int(ckpt["step"])
+    return state
+
+
+class CheckpointManager:
+    """``last.pt`` after every epoch, and the best on val_mpjpe under the
+    reference's name ``epoch={epoch}-step={step}-val_mpjpe={val:.3f}.pt``
+    (only the best is kept). ``best.json`` records it, so that a resumed run
+    does not demote the best of the run before."""
+
+    def __init__(self, out_dir: str | Path):
+        self.out_dir = Path(out_dir)
+        self.out_dir.mkdir(parents=True, exist_ok=True)
+        self.best_val = float("inf")
+        self.best_path: Path | None = None
+        self._meta_path = self.out_dir / "best.json"
+        if self._meta_path.exists():
+            meta = json.loads(self._meta_path.read_text())
+            if Path(meta["best_path"]).exists():
+                self.best_val = float(meta["best_val"])
+                self.best_path = Path(meta["best_path"])
+
+    @property
+    def last_path(self) -> Path:
+        return self.out_dir / "last.pt"
+
+    def save(self, state, epoch: int, val_mpjpe: float) -> None:
+        save_checkpoint(self.last_path, state)
+        if val_mpjpe < self.best_val:
+            prev = self.best_path
+            self.best_val = val_mpjpe
+            self.best_path = self.out_dir / (
+                f"epoch={epoch}-step={state.step}-val_mpjpe={val_mpjpe:.3f}.pt")
+            save_checkpoint(self.best_path, state)
+            self._meta_path.write_text(json.dumps(
+                {"best_val": self.best_val, "best_path": str(self.best_path)}))
+            if prev is not None and prev != self.best_path:
+                prev.unlink(missing_ok=True)
+
+    def restore_best(self, state):
+        """``state`` loaded from the best checkpoint (``last.pt`` if none)."""
+        return restore_checkpoint(self.best_path or self.last_path, state)
+
+
+EVAL_LABELS = ("joints_crop_img", "joints_cam", "root_joint", "vertices", "joints_img_mask")
+
+
+def evaluate(model, batches: Iterable[Mapping[str, torch.Tensor]], cfg: Config,
+             mode: str = "val", vertices_fn: Callable | None = None) -> Dict[str, Any]:
+    """One evaluation pass: the eval-mode forward and ``pose_metrics_device``
+    per batch (labels in mm, as the batch holds them), averaged over the
+    samples with one host read at the end. Keys are prefixed ``{mode}_``."""
+    avg = DeviceMetricAverager()
+    for batch in batches:
+        out = eval_step(model, batch)
+        labels = labels_in_meters({k: batch[k] for k in EVAL_LABELS if k in batch},
+                                  out["joints_cam"].device)
+        metrics = pose_metrics_device(out, labels, cfg.auc_thresholds,
+                                      root_relative=cfg.train.root_relative,
+                                      vertices_fn=vertices_fn)
+        avg.update(metrics, weight=float(batch["rgb"].shape[0]))
+    return {f"{mode}_{k}": v for k, v in avg.result().items()}
+
+
+def write_results_json(path: str | Path, results: Mapping[str, Any]) -> None:
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump([dict(results)], f, indent=2, default=float)

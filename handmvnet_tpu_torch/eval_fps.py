@@ -65,7 +65,7 @@ def model_inputs(views: int, image_size: int, device: str, dtype: torch.dtype,
                  seed: int = 0) -> tuple[torch.Tensor, ...]:
     """One request of the protocol (batch 1): (rgb in ``dtype``, bboxes f32,
     intrinsics f32) on ``device``."""
-    data = synthetic_batch(1, views, image_size, seed=seed)
+    data = synthetic_batch(1, views, image_size, seed=seed, with_heatmaps=False)
     return (
         torch.from_numpy(data["rgb"]).to(device=device, dtype=dtype),
         torch.from_numpy(data["bboxes"]).to(device),

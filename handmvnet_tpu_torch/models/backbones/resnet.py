@@ -4,8 +4,11 @@ handmvnet_tpu/models/backbones/resnet.py).
 torchvision's bottleneck topology with layer3 at stride 1 and no layer4: a
 [B, 3, H, W] image gives one [B, 1024, H/8, W/8] map. The stem conv goes
 through ``ops.stem.stem_conv_nchw`` (the K2 kernel on the card) at every
-batch shape. The other convolutions are plain large products and stay
-``F.conv2d``, as the JAX package left them to XLA.
+batch shape, in training too. The other convolutions are plain large
+products and stay ``F.conv2d``, as the JAX package left them to XLA. With
+``frozen_bn`` every BatchNorm of the backbone reads its running statistics
+in train mode as well (the config's ``freeze_bn``); its scale and shift
+still train.
 """
 
 from __future__ import annotations
@@ -62,11 +65,12 @@ class Bottleneck(nn.Module):
 class ResNetBackbone(nn.Module):
     """[B, 3, H, W] -> [B, 1024, H/8, W/8] for version "50_paper"."""
 
-    def __init__(self, version: str = "50_paper"):
+    def __init__(self, version: str = "50_paper", frozen_bn: bool = False):
         super().__init__()
         if version not in _LAYOUTS:
             raise ValueError(f"unsupported ResNet version {version!r} "
                              f"(the port has {sorted(_LAYOUTS)})")
+        self.frozen_bn = frozen_bn
         self.conv1 = StemConv()
         self.bn1 = batch_norm(64)
         inplanes = 64
@@ -77,6 +81,15 @@ class ResNetBackbone(nn.Module):
                 layer.append(Bottleneck(inplanes, planes, stride if bidx == 0 else 1))
                 inplanes = planes * Bottleneck.expansion
             setattr(self, f"layer{stage + 1}", nn.Sequential(*layer))
+        self.train()  # modules start in train mode: freeze the BNs from the start
+
+    def train(self, mode: bool = True) -> "ResNetBackbone":
+        super().train(mode)
+        if self.frozen_bn:
+            for m in self.modules():
+                if isinstance(m, nn.BatchNorm2d):
+                    m.eval()
+        return self
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = F.relu(self.bn1(self.conv1(x)))

@@ -33,9 +33,11 @@ class CrossAttentionFusion(nn.Module):
         pe = torch.from_numpy(sinusoidal_position_table(feat_dim, max_tokens))
         self.register_buffer("pe", pe, persistent=False)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+        """x [b, 21*V, feat] -> [b, 21, feat]; ``generator`` draws the
+        dropout masks in train mode."""
         if self.add_pos:
             x = x + self.pe[:, : x.shape[1]].to(x.dtype)
         for block in self.attn_fusion:
-            x = block(x)
+            x = block(x, generator)
         return x

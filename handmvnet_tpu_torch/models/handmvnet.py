@@ -1,5 +1,6 @@
-"""HandMvNet inference forward (counterpart of
-handmvnet_tpu/models/handmvnet.py, stage "full", relative root):
+"""HandMvNet forward (counterpart of handmvnet_tpu/models/handmvnet.py, stage
+"full", relative root), for inference (``.eval()``) and training
+(``.train()``: BatchNorm batch statistics, dropout in the fusion blocks):
 
   rgb [b, v, H, W, 3]
     -> per-view ResNet-50 "paper" backbone over b*v images (NCHW inside)
@@ -33,9 +34,11 @@ def _at_least_f32(dtype: torch.dtype) -> torch.dtype:
 
 class HandMvNet(nn.Module):
     """The port covers the release configs' model: ResNet "50_paper", the
-    cross_attn fusion, root-relative output. Inference only (``.eval()``)."""
+    cross_attn fusion, root-relative output. ``dropout`` is the fusion
+    blocks' rate (the reference fixes 0.1; 0 trains without dropout)."""
 
-    def __init__(self, cfg: ModelConfig, image_size: int = 256, heatmap_size: int = 32):
+    def __init__(self, cfg: ModelConfig, image_size: int = 256, heatmap_size: int = 32,
+                 dropout: float = 0.1):
         super().__init__()
         if cfg.backbone != "resnet" or cfg.backbone_type != "50_paper":
             raise ValueError(f"the port has the ResNet 50_paper backbone only, not "
@@ -47,7 +50,7 @@ class HandMvNet(nn.Module):
         self.heatmap_size = heatmap_size
         j = cfg.num_joints
         channels = 1024
-        self.backbone = ResNetBackbone(cfg.backbone_type)
+        self.backbone = ResNetBackbone(cfg.backbone_type, frozen_bn=cfg.freeze_bn)
         self.pose_net = nn.Sequential(
             nn.Conv2d(channels, 512, 1), batch_norm(512), nn.ReLU(), nn.Conv2d(512, j, 1)
         )
@@ -55,18 +58,18 @@ class HandMvNet(nn.Module):
         feat_dim = cfg.feat_dim
         self.joints_late_fusion = CrossAttentionFusion(
             feat_dim, max_tokens=j * cfg.num_views, custom_query_length=j,
-            num_layers=cfg.fusion_layers, add_pos="sin" in cfg.pos_enc,
+            num_layers=cfg.fusion_layers, dropout=dropout, add_pos="sin" in cfg.pos_enc,
         )
         decoder = JointsDecoderGCN if cfg.use_gcn else JointsDecoderNN
         self.joints_decoder = decoder(feat_dim)
 
     def forward(self, rgb: torch.Tensor, bboxes: torch.Tensor | None = None,
-                intrinsics: torch.Tensor | None = None) -> dict[str, torch.Tensor]:
+                intrinsics: torch.Tensor | None = None,
+                generator: torch.Generator | None = None) -> dict[str, torch.Tensor]:
         """rgb [b, v, H, W, 3]; bboxes [b, v, 4] xyxy; intrinsics [b, v, 4]
-        (fx, fy, cx, cy). Returns joints_cam [b, 21, 3], joints_crop_img
-        [b, v, 21, 2] and heatmap [b, v, 21, h, w]."""
-        if self.training:
-            raise RuntimeError("the port's HandMvNet runs inference only: call .eval()")
+        (fx, fy, cx, cy); ``generator`` draws the dropout masks in train mode.
+        Returns joints_cam [b, 21, 3], joints_crop_img [b, v, 21, 2] and
+        heatmap [b, v, 21, h, w]."""
         cfg = self.cfg
         b, v = rgb.shape[:2]
         j = cfg.num_joints
@@ -91,7 +94,7 @@ class HandMvNet(nn.Module):
             tokens = torch.cat([tokens, fov.to(tokens.dtype).expand(b * v, j, 10)], dim=-1)
 
         tokens_b = tokens.reshape(b, v * j, tokens.shape[-1])
-        joints_cam = self.joints_decoder(self.joints_late_fusion(tokens_b))
+        joints_cam = self.joints_decoder(self.joints_late_fusion(tokens_b, generator))
 
         scale = float(self.image_size) / float(self.heatmap_size)
         out_dtype = _at_least_f32(rgb.dtype)

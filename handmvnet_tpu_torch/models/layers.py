@@ -7,8 +7,11 @@ package's flax names onto them). Numerics follow the reference:
   * BatchNorm and LayerNorm epsilon 1e-5
   * GELU in its exact erf form
   * LeakyReLU negative slope 0.01
-The port runs inference only: BatchNorm reads its running statistics and
-dropout is the identity (``.eval()``).
+In ``.train()`` BatchNorm normalises with the batch statistics and updates
+its running statistics as torch does (unbiased running variance, momentum
+0.1), which is the JAX package's ``TorchBatchNorm``; ``Dropout`` draws its
+masks from a ``torch.Generator`` that the caller passes down. In ``.eval()``
+BatchNorm reads its running statistics and dropout is the identity.
 """
 
 from __future__ import annotations
@@ -52,6 +55,29 @@ def sinusoidal_position_table(d_model: int, max_len: int) -> np.ndarray:
     return pe.astype(np.float32)
 
 
+class Dropout(nn.Module):
+    """Inverted dropout at rate ``p`` whose masks come from the generator
+    passed to ``forward`` (``nn.Dropout`` reads the global RNG): kept
+    elements are scaled by 1 / (1 - p), as flax's Dropout does. The identity
+    in eval mode or at p = 0; in train mode with p > 0 a generator is
+    required."""
+
+    def __init__(self, p: float = 0.0):
+        super().__init__()
+        if not 0.0 <= p < 1.0:
+            raise ValueError(f"dropout rate {p} outside [0, 1)")
+        self.p = p
+
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        if generator is None:
+            raise ValueError("train-mode dropout draws its masks from an explicit "
+                             "torch.Generator: pass generator=")
+        keep = torch.empty_like(x).bernoulli_(1.0 - self.p, generator=generator)
+        return x * keep / (1.0 - self.p)
+
+
 class FeedForward(nn.Module):
     """LN -> Linear(dim, hidden) -> GELU -> Dropout -> Linear(hidden, dim) ->
     Dropout; the Sequential indices give the reference's net.0/1/4 keys."""
@@ -62,13 +88,14 @@ class FeedForward(nn.Module):
             layer_norm(dim),
             nn.Linear(dim, hidden_dim),
             nn.GELU(),
-            nn.Dropout(dropout),
+            Dropout(dropout),
             nn.Linear(hidden_dim, dim),
-            nn.Dropout(dropout),
+            Dropout(dropout),
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.net(x)
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+        norm, fc1, gelu, drop1, fc2, drop2 = self.net
+        return drop2(fc2(drop1(gelu(fc1(norm(x))), generator)), generator)
 
 
 class MultiHeadAttention(nn.Module):
@@ -91,12 +118,12 @@ class MultiHeadAttention(nn.Module):
         self.to_k = nn.Linear(d_model, inner, bias=False)
         self.to_v = nn.Linear(d_model, inner, bias=False)
         self.to_out = nn.Linear(inner, d_model)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = Dropout(dropout)
         self.norm1 = layer_norm(d_model)
         self.ff = FeedForward(d_model, dim_head, dropout)
         self.norm2 = layer_norm(d_model)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         cql = self.custom_query_length
         xq, xkv = (x[:, :cql], x[:, cql:]) if cql > 0 else (x, x)
 
@@ -110,9 +137,9 @@ class MultiHeadAttention(nn.Module):
         out = attention_ops.fused_attention(q, k, v, self.dim_head ** -0.5)
         out = out.transpose(1, 2).reshape(b, nq, self.n_heads * self.dim_head)
 
-        out = self.dropout(self.to_out(out))
+        out = self.dropout(self.to_out(out), generator)
         out = self.norm1(out + xq)
-        return self.norm2(self.ff(out) + out)
+        return self.norm2(self.ff(out, generator) + out)
 
 
 class ChebConv(nn.Module):

@@ -1,10 +1,13 @@
 """Fused attention core of the fusion blocks (counterpart of
 handmvnet_tpu/ops/pallas/attention.py).
 
-``fused_attention`` launches the hand-written CUDA kernel (csrc/attention.cu)
-for CUDA tensors and computes ``attention_plain`` for CPU tensors. Layout
-[B, H, N, D] as in the JAX package. Forward only: training, and with it a
-backward, arrive in a later slice.
+``fused_attention`` is a ``torch.autograd.Function``. Its forward launches
+the hand-written CUDA kernel (csrc/attention.cu) for CUDA tensors and
+computes ``attention_plain`` for CPU tensors. Its backward is
+``attention_backward``, PyTorch ops that mirror the JAX package's VJP
+(``_pallas_attention_bwd``): like it, they recompute the softmax from the
+saved q, k, v, since neither package has a backward kernel. Layout
+[B, H, N, D] as in the JAX package.
 """
 
 from __future__ import annotations
@@ -29,6 +32,23 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhij,bhjd->bhid", attn, v.to(ct)).to(q.dtype)
 
 
+def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
+                       scale: float) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of softmax(q k^T * scale) v for the output gradient g:
+    p recomputed, then dv = p^T g, dp = g v^T, ds = p (dp - sum(dp p)),
+    dq = ds k * scale, dk = ds^T q * scale. Computed in >= f32 and returned
+    in the inputs' dtypes."""
+    ct = torch.promote_types(q.dtype, torch.float32)
+    qc, kc, vc, gc = (t.to(ct) for t in (q, k, v, g))
+    p = torch.softmax(torch.einsum("bhid,bhjd->bhij", qc, kc) * scale, dim=-1)
+    dv = torch.einsum("bhij,bhid->bhjd", p, gc)
+    dp = torch.einsum("bhid,bhjd->bhij", gc, vc)
+    ds = p * (dp - torch.sum(dp * p, dim=-1, keepdim=True))
+    dq = torch.einsum("bhij,bhjd->bhid", ds, kc) * scale
+    dk = torch.einsum("bhij,bhid->bhjd", ds, qc) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def _entry():
     lib = _build.load("attention")
     fn = lib.hmv_attention_fwd
@@ -41,14 +61,10 @@ def _entry():
     return lib, fn
 
 
-def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    scale: float) -> torch.Tensor:
-    """Multi-head attention core. q: [B, H, Nq, D]; k, v: [B, H, Nk, D] ->
-    [B, H, Nq, D]. CPU tensors take ``attention_plain``; CUDA tensors launch
-    the kernel (f32 or bf16, D = 128, any strides with a contiguous last dim
-    and every row starting on 16 bytes) or raise."""
-    if q.device.type == "cpu":
-        return attention_plain(q, k, v, scale)
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
+    """The kernel's forward on CUDA tensors (f32 or bf16, D = 128, any
+    strides with a contiguous last dim and every row starting on 16 bytes);
+    raises on what it does not take."""
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention: unsupported device {q.device}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -81,4 +97,30 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-fused_attention.launches = 0  # kernel launches, for showing a run went through it
+class FusedAttention(torch.autograd.Function):
+    """The kernel (or, on the CPU, the plain version) forward, and
+    ``attention_backward`` from the saved q, k, v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        if q.device.type == "cpu":
+            return attention_plain(q, k, v, scale)
+        return _launch(q, k, v, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        return (*attention_backward(q, k, v, g, ctx.scale), None)
+
+
+def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float) -> torch.Tensor:
+    """Multi-head attention core, differentiable in q, k and v.
+    q: [B, H, Nq, D]; k, v: [B, H, Nk, D] -> [B, H, Nq, D]. CPU tensors take
+    ``attention_plain``; CUDA tensors launch the kernel or raise."""
+    return FusedAttention.apply(q, k, v, scale)
+
+
+fused_attention.launches = 0  # forward kernel launches, for showing a run went through it

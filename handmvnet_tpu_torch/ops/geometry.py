@@ -1,10 +1,19 @@
 """Crop geometry, the crop-FoV encoding and the joint mask of the metrics
-(counterpart of the functions of handmvnet_tpu/ops/geometry.py that the
-inference and evaluation paths use)."""
+and losses (counterpart of the functions of handmvnet_tpu/ops/geometry.py
+that the inference, evaluation and training paths use)."""
 
 from __future__ import annotations
 
 import torch
+
+
+def joints_img_to_crop(pts: torch.Tensor, boxes: torch.Tensor,
+                       image_size: float = 256.0) -> torch.Tensor:
+    """Full-image pixel coords -> crop-image pixel coords.
+    pts: [..., N, 2]; boxes: [..., 4] xyxy."""
+    x1y1 = boxes[..., None, 0:2]
+    wh = boxes[..., None, 2:4] - x1y1
+    return (pts - x1y1) * (image_size / wh)
 
 
 def joints_crop_to_img(pts: torch.Tensor, boxes: torch.Tensor,

@@ -1,10 +1,14 @@
 """ResNet stem conv, 7x7 / stride 2 / pad 3, 3 -> 64 channels (counterpart of
 handmvnet_tpu/ops/pallas/stem.py).
 
-``stem_conv_nchw`` launches the hand-written CUDA kernel (csrc/stem.cu) for
-CUDA tensors and computes ``stem_conv_plain`` for CPU tensors. It is exact at
-every input size, odd ones included. ``stem_conv`` keeps the JAX package's
-NHWC input / HWIO kernel layout for comparison with ``stem_s2d_fused``.
+``stem_conv_nchw`` is a ``torch.autograd.Function``. Its forward launches
+the hand-written CUDA kernel (csrc/stem.cu) for CUDA tensors and computes
+``stem_conv_plain`` for CPU tensors; it is exact at every input size, odd
+ones included. Its backward takes the convolution's weight and input
+gradients from ``torch.nn.grad``: the counterpart of the gradient XLA takes
+through the JAX package's training stem, the plain ``lax.conv``, since the
+Pallas kernel has no VJP. ``stem_conv`` keeps the JAX package's NHWC input /
+HWIO kernel layout for comparison with ``stem_s2d_fused``.
 """
 
 from __future__ import annotations
@@ -18,11 +22,12 @@ from handmvnet_tpu_torch.ops import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 WEIGHT_SHAPE = (64, 3, 7, 7)  # the kernel's OIHW weight
+STRIDE, PADDING = 2, 3
 
 
 def stem_conv_plain(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     """x: [N, 3, H, W]; weight: [F, 3, 7, 7] OIHW -> [N, F, ceil(H/2), ceil(W/2)]."""
-    return F.conv2d(x, weight.to(x.dtype), stride=2, padding=3)
+    return F.conv2d(x, weight.to(x.dtype), stride=STRIDE, padding=PADDING)
 
 
 def _entry():
@@ -37,12 +42,9 @@ def _entry():
     return lib, fn
 
 
-def stem_conv_nchw(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-    """The stem conv. x: [N, 3, H, W], any strides; weight: [64, 3, 7, 7]
-    OIHW in x's dtype. CPU tensors take ``stem_conv_plain``; CUDA tensors
-    launch the kernel (f32 or bf16) or raise. Returns contiguous NCHW."""
-    if x.device.type == "cpu":
-        return stem_conv_plain(x, weight)
+def _launch(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """The kernel on CUDA tensors (f32 or bf16, input and weight alike);
+    raises on what it does not take."""
     if x.device.type != "cuda":
         raise ValueError(f"stem_conv_nchw: unsupported device {x.device}")
     if x.dtype not in _DTYPES or weight.dtype != x.dtype:
@@ -70,7 +72,40 @@ def stem_conv_nchw(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     return out
 
 
-stem_conv_nchw.launches = 0  # kernel launches, for showing a run went through it
+class StemConv(torch.autograd.Function):
+    """The kernel (or, on the CPU, the plain version) forward; weight and
+    input gradients by ``torch.nn.grad``, the input's only when asked for
+    (a training image has none)."""
+
+    @staticmethod
+    def forward(ctx, x, weight):
+        ctx.save_for_backward(x, weight)
+        if x.device.type == "cpu":
+            return stem_conv_plain(x, weight)
+        return _launch(x, weight)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = torch.nn.grad.conv2d_input(x.shape, weight.to(g.dtype), g,
+                                            stride=STRIDE, padding=PADDING)
+        if ctx.needs_input_grad[1]:
+            gw = torch.nn.grad.conv2d_weight(x, weight.shape, g, stride=STRIDE,
+                                             padding=PADDING).to(weight.dtype)
+        return gx, gw
+
+
+def stem_conv_nchw(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """The stem conv, differentiable in x and weight. x: [N, 3, H, W], any
+    strides; weight: [64, 3, 7, 7] OIHW in x's dtype. CPU tensors take
+    ``stem_conv_plain``; CUDA tensors launch the kernel (f32 or bf16) or
+    raise. Returns contiguous NCHW."""
+    return StemConv.apply(x, weight)
+
+
+stem_conv_nchw.launches = 0  # forward kernel launches, for showing a run went through it
 
 
 def stem_conv(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:

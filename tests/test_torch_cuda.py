@@ -1,5 +1,6 @@
-"""The port's CUDA kernels against their plain PyTorch versions, and the mesh
-stage against the CPU, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, their
+autograd Functions against autograd through the plain versions, a training
+step through both kernels, and the mesh stage against the CPU, on the card.
 
 Marked ``cuda``: they skip on a machine without a CUDA device (a kernel
 written in CUDA has no CPU mode). On a host with an NVIDIA Hopper GPU:
@@ -21,7 +22,10 @@ Tolerances (max |kernel - plain|):
                   to each weight, well under the bound (the JAX package's own
                   bf16 kernel is held to the same 2^-6 in
                   tests/test_torch_attention.py).
-TF32 is switched off so that the plain fp32 versions are fp32.
+Backwards (PyTorch ops, as the JAX package has no backward kernel): the
+Functions' gradients against autograd through the plain versions, fp32 1e-5
+(stem: 1e-5 x max), bf16 2^-6 x max. TF32 is switched off so that the plain
+fp32 versions are fp32.
 """
 
 import pytest
@@ -114,6 +118,88 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(card):
     with pytest.raises(TypeError):
         stem_conv_nchw(x, torch.randn(64, 3, 7, 7, device=card, dtype=torch.bfloat16))
 
+
+
+# (Nq, Nk) of one training microbatch (8 samples x 5 views) at batch 8
+ATTN_TRAIN_SHAPES = [(105, 105), (21, 84), (21, 21)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("nq,nk", ATTN_TRAIN_SHAPES)
+def test_attention_function_grads_match_plain(card, dtype, nq, nk):
+    g = torch.Generator(card).manual_seed(nq * 1000 + nk)
+    base = [torch.randn(8, n, 8, 128, generator=g, device=card).to(dtype) for n in (nq, nk, nk)]
+    grad_out = torch.randn(8, 8, nq, 128, generator=g, device=card).to(dtype)
+    grads = []
+    for fn in (fused_attention, attention_plain):
+        qkv = [t.clone().requires_grad_(True) for t in base]
+        before = fused_attention.launches
+        out = fn(*(t.transpose(1, 2) for t in qkv), 128 ** -0.5)
+        if fn is fused_attention:
+            assert type(out.grad_fn).__name__ == "FusedAttentionBackward"
+            assert fused_attention.launches == before + 1
+        out.backward(grad_out)
+        grads.append([t.grad for t in qkv])
+    for ours, ref in zip(*grads):
+        assert ours.dtype == dtype and ours.device.type == "cuda"
+        err = float((ours.float() - ref.float()).abs().max())
+        assert err <= _tol(dtype, ref.float(), 1e-5), err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("n", [40, 2])
+def test_stem_function_weight_grad_matches_plain(card, dtype, n):
+    g = torch.Generator(card).manual_seed(n)
+    x = torch.randn(n, 256, 256, 3, generator=g, device=card).to(dtype).permute(0, 3, 1, 2)
+    base = (torch.randn(64, 3, 7, 7, generator=g, device=card) * 0.05).to(dtype)
+    grad_out = torch.randn(n, 64, 128, 128, generator=g, device=card).to(dtype)
+    grads = []
+    for fn in (stem_conv_nchw, stem_conv_plain):
+        weight = base.clone().requires_grad_(True)
+        out = fn(x, weight)
+        if fn is stem_conv_nchw:
+            assert type(out.grad_fn).__name__ == "StemConvBackward"
+        out.backward(grad_out)
+        grads.append(weight.grad)
+    ours, ref = grads
+    err = float((ours.float() - ref.float()).abs().max())
+    assert err <= _tol(dtype, ref.float(), 1e-5 * float(ref.float().abs().max())), err
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_train_step_trains_through_both_kernels(card, compute_dtype):
+    """A training step on the card launches K1 5 and K2 once per microbatch,
+    and every parameter above a kernel gets a non-zero gradient: the stem's
+    conv1.weight and each fusion block's to_q, to_k and to_v."""
+    import dataclasses
+    from pathlib import Path
+
+    from handmvnet_tpu_torch.config import Config
+    from handmvnet_tpu_torch.data.synthetic import synthetic_batch
+    from handmvnet_tpu_torch.train_step import (
+        accumulate_grads, batch_to_device, build_model, create_train_state)
+
+    cfg = Config.from_yaml(Path(__file__).resolve().parents[1] / "configs" / "release"
+                           / "HO3D_HandMvNet.yaml")
+    cfg = dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, selected_views=(0, 1, 2)),
+        data=dataclasses.replace(cfg.data, image_size=64, heatmap_size=8),
+        train=dataclasses.replace(cfg.train, compute_dtype=compute_dtype))
+    state = create_train_state(build_model(cfg, "cuda", seed=0), cfg, steps_per_epoch=10)
+    batch = batch_to_device(synthetic_batch(4, 3, 64, 8, seed=1), card)
+    counts = (fused_attention.launches, stem_conv_nchw.launches)
+    losses = accumulate_grads(state, cfg, batch, torch.Generator(card).manual_seed(0), 2)
+    torch.cuda.synchronize()
+    assert (fused_attention.launches - counts[0], stem_conv_nchw.launches - counts[1]) == (10, 2)
+    assert torch.isfinite(losses["loss"]) and losses["loss"].dtype == torch.float32
+    params = dict(state.model.named_parameters())
+    watched = ["backbone.conv1.weight"] + [
+        n for n in params if n.endswith(("to_q.weight", "to_k.weight", "to_v.weight"))]
+    assert len(watched) == 1 + 15
+    for name in watched:
+        grad = params[name].grad
+        assert grad is not None and grad.dtype == torch.float32, name
+        assert float(grad.abs().max()) > 0, name
 
 
 # The mesh stage (SVD alignment, adaptive IK, MANO LBS) has no kernel of its

@@ -1,13 +1,16 @@
 """Port parity, the slice as a whole: handmvnet_tpu_torch's HandMvNet
-inference forward against the JAX package's on the same weights and inputs,
-fp32 on the CPU, plus the weight bridge and the port's eval_fps entry point.
+forward against the JAX package's on the same weights and inputs, fp32 on
+the CPU, in eval mode and in train mode (batch statistics, dropout 0), plus
+the weight bridge and the port's eval_fps entry point.
 
 Models: configs/release/DexYCB_HandMvNet.yaml (the 8-view release model, whose
 weight shapes the b1 x v8 protocol runs) and its _wo_cam variant (no crop-FoV
 encoding), with views cut to 3, batch 2 and 64^2 images, so heatmaps are 8^2.
 """
 
+import copy
 import dataclasses
+from functools import partial
 from pathlib import Path
 
 import jax
@@ -66,7 +69,8 @@ def slice_case(request):
     with torch.no_grad():
         ours = port(*(torch.from_numpy(data[k]) for k in ("rgb", "bboxes", "intrinsic")))
     return {"variables": variables, "state": state, "port": port, "ref": ref,
-            "ours": {k: v.numpy() for k, v in ours.items()}}
+            "ours": {k: v.numpy() for k, v in ours.items()}, "data": data, "args": args,
+            "cfg": mcfg, "jax_cfg": jmcfg}
 
 
 @pytest.mark.parametrize("key", sorted(TOLERANCES))
@@ -121,12 +125,55 @@ def test_cpu_forward_launches_no_kernel(slice_case):
 
 
 def test_train_mode_is_refused(slice_case):
-    port = slice_case["port"]
-    try:
-        with pytest.raises(RuntimeError, match="inference only"):
-            port.train()(torch.zeros(1, VIEWS, IMAGE, IMAGE, 3))
-    finally:
-        port.eval()
+    """A train-mode forward with dropout needs the generator its masks come
+    from: without one it is refused, not drawn from the global RNG."""
+    port = copy.deepcopy(slice_case["port"]).train()
+    with pytest.raises(ValueError, match="torch.Generator"):
+        port(torch.zeros(1, VIEWS, IMAGE, IMAGE, 3), torch.ones(1, VIEWS, 4) * 100,
+             torch.ones(1, VIEWS, 4) * 100)
+
+
+# Train mode is compared in float64 on both sides: in fp32 both packages' own
+# rounding is amplified through 45 train-mode BatchNorms over random weights
+# (on this model the port's fp32 heatmaps sit 1.2e-4 from its float64 ones,
+# and flax's, whose variance is E[x^2] - E[x]^2, 5.9e-4; joints_crop_img
+# 0.13 px and 2.6 px). Tolerances in float64, with the largest error measured:
+# heatmap 1e-10 (1.4e-12), joints_cam 1e-9 (8.1e-11), joints_crop_img 1e-7 px
+# (1.8e-9: the x1000 soft-argmax of logits up to ~3), running statistics
+# 1e-10 (4.4e-14).
+TRAIN_TOLERANCES = {"heatmap": 1e-10, "joints_cam": 1e-9, "joints_crop_img": 1e-7}
+TRAIN_STATS_ATOL = 1e-10
+
+
+def test_train_forward_matches_flax(slice_case):
+    """Train mode at dropout 0: outputs from batch statistics, and the
+    running statistics they update, against flax's train=True forward."""
+    to64 = partial(jax.tree.map, lambda a: np.asarray(a, np.float64))
+    variables = to64(slice_case["variables"])
+    data = to64({k: slice_case["data"][k] for k in ("rgb", "bboxes", "intrinsic")})
+    with jax.enable_x64(True):
+        flax_model = FlaxHandMvNet(cfg=slice_case["jax_cfg"], image_size=IMAGE,
+                                   heatmap_size=HEATMAP, dropout=0.0)
+        ref, mutated = jax.jit(lambda v, *a: flax_model.apply(
+            v, *a, train=True, mutable=["batch_stats"]))(
+                variables, *(jnp.asarray(data[k]) for k in ("rgb", "bboxes", "intrinsic")))
+        ref = {k: np.asarray(v) for k, v in ref.items()}
+        stats = load_flax_variables({"batch_stats": jax.tree.map(np.asarray,
+                                                                 mutated["batch_stats"])})
+    port = HandMvNet(slice_case["cfg"], image_size=IMAGE, heatmap_size=HEATMAP, dropout=0.0)
+    port.load_state_dict(load_flax_variables(variables))
+    with torch.no_grad():
+        ours = port.double().train()(
+            *(torch.from_numpy(data[k]) for k in ("rgb", "bboxes", "intrinsic")))
+    for key, tol in TRAIN_TOLERANCES.items():
+        assert ours[key].dtype == torch.float64
+        np.testing.assert_allclose(ours[key].numpy(), ref[key], atol=tol, rtol=0, err_msg=key)
+    sd = port.state_dict()
+    keys = [k for k in stats if k.endswith(("running_mean", "running_var"))]
+    assert len(keys) == 2 * 45
+    for key in keys:
+        np.testing.assert_allclose(sd[key].numpy(), stats[key].numpy(), atol=TRAIN_STATS_ATOL,
+                                   rtol=0, err_msg=key)
 
 
 def test_synthetic_batch_matches_jax_package():
