@@ -25,7 +25,8 @@ Phases; any failure exits nonzero and prints no result:
      256^2, accumulation 2, full width): each kernel at the training shapes
      against its plain version, forward and backward (the backwards are
      PyTorch ops), and timed; then, in fp32 and in bf16, 3 warmup and 20
-     timed optimizer steps on one synthetic batch with the counters set to 0
+     timed optimizer steps on one synthetic batch (every view at the root
+     camera's pose: see train_run) with the counters set to 0
      just before and read just after: K1 must launch 10 times a step and K2
      twice, the loss must be finite at every step and lower at the end;
      ms a step, samples/s, peak memory and the device ops of one
@@ -34,7 +35,20 @@ Phases; any failure exits nonzero and prints no result:
      loss terms rel 1e-4, global gradient norm rel 1e-3 (judged with the
      heatmap head scaled so that the soft-argmax is not saturated, printed
      without it);
-  7. a {"kernels": [...]} line, then the {"ok": true, ...} line last.
+  7. the HRNet model of the HR release configs (configs/release/*_HR*.yaml,
+     HRNet w40, whose stem is two 3x3 convs: K2 is off its path): the
+     eval_fps protocol on the HO3D HR config with the mesh stage in fp32 and
+     bf16, the counters set to 0 just before and read just after (K1 5
+     launches a forward, K2 none; outputs, vertices among them, finite
+     fp32 of the expected shapes on the card); the fp32 kernel path against
+     the plain path (phase 5's tolerances); then the HR release recipe's
+     training (batch 16 x 5 views, accumulation 2), 3 warmup and 20 timed
+     optimizer steps per dtype (K1 10 launches a step, K2 none, a finite
+     falling loss) and one fp32 step of the kernel path against the plain
+     path (phase 6's tolerances and scaled-head rule);
+  8. a {"kernels": [...]} line (the HR rows carry K1's launches on the HR
+     paths), then the {"ok": true, ...} line last.
+Each phase prints its seconds.
 
 fp32 means fp32 here: TF32 is switched off for matmuls and cuDNN convs.
 """
@@ -59,6 +73,7 @@ from torch.profiler import ProfilerActivity, profile
 
 REPO = Path(__file__).resolve().parent
 CONFIG = REPO / "configs" / "release" / "HO3D_HandMvNet.yaml"
+HR_CONFIG = REPO / "configs" / "release" / "HO3D_HandMvNet_HR.yaml"
 WARMUP, ITERS = 100, 1000  # the reference's protocol; warmup + 2 * ITERS forwards per dtype
 
 # H100 SXM data sheet: HBM rate, dense tensor-core peaks. The fp32 kernels run
@@ -296,28 +311,42 @@ def check_stem_backward(stem_ops, dtype, gen) -> dict:
     return {"err": err, "ms": ms}
 
 
-def train_config(dtype_name: str):
+def train_config(dtype_name: str, config: Path = CONFIG):
     from handmvnet_tpu_torch.config import Config
 
-    cfg = Config.from_yaml(CONFIG)
+    cfg = Config.from_yaml(config)
     return dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, compute_dtype=dtype_name))
 
 
-def train_run(attention_ops, stem_ops, dtype_name: str) -> dict:
-    """The training path at the release recipe: TRAIN_WARMUP + TRAIN_ITERS
-    optimizer steps of the train step on one fixed synthetic batch, the
-    launch counters set to 0 just before and read just after."""
+def train_run(attention_ops, stem_ops, dtype_name: str, config: Path = CONFIG,
+              stem_per_step: int = 2) -> dict:
+    """The training path at the config's release recipe: TRAIN_WARMUP +
+    TRAIN_ITERS optimizer steps of the train step on one fixed synthetic
+    batch, the launch counters set to 0 just before and read just after; K1
+    must launch 10 times a step and K2 ``stem_per_step`` times.
+
+    Every view sits at the root camera's pose, as in ``train_kernel_vs_plain``;
+    the work is the same. The synthetic batch's random camera rotations put
+    some predicted joints within millimetres of a camera plane, where the
+    g2d/p2d reprojection terms jump by thousands between steps, so "lower at
+    the end" read those jumps. On an H100 the HRNet model's fp32 loss went
+    3187 -> 3435 in 23 steps with jumps to 11622 and 36911, and the ResNet
+    model's, in one run of several, 5448 -> 6576; with the cameras aligned
+    the HRNet loss fell at every step but two (520.7 -> 424.7)."""
     from handmvnet_tpu_torch.data.synthetic import synthetic_batch
     from handmvnet_tpu_torch.train import accumulation
     from handmvnet_tpu_torch.train_step import (
         batch_to_device, build_model, create_train_state, forward_loss, train_step)
 
-    cfg = train_config(dtype_name)
+    cfg = train_config(dtype_name, config)
+    label = f"{config.stem} training {dtype_name}"
     accum = accumulation(cfg)
     state = create_train_state(build_model(cfg, "cuda", seed=0), cfg,
                                steps_per_epoch=cfg.split_size("train") // TRAIN_BATCH)
-    batch = batch_to_device(synthetic_batch(TRAIN_BATCH, TRAIN_VIEWS, cfg.data.image_size,
-                                            cfg.data.heatmap_size, seed=0), "cuda")
+    data = synthetic_batch(TRAIN_BATCH, TRAIN_VIEWS, cfg.data.image_size, cfg.data.heatmap_size,
+                           seed=0)
+    data["extrinsic"][:] = np.eye(4, dtype=np.float32)
+    batch = batch_to_device(data, "cuda")
     gen = torch.Generator("cuda")
     steps = TRAIN_WARMUP + TRAIN_ITERS
     losses = []
@@ -338,17 +367,17 @@ def train_run(attention_ops, stem_ops, dtype_name: str) -> dict:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     curve = torch.stack(losses).cpu().tolist()
 
-    print(f"training {dtype_name}: batch {TRAIN_BATCH} x {TRAIN_VIEWS} views, accumulation "
+    print(f"{label}: batch {TRAIN_BATCH} x {TRAIN_VIEWS} views, accumulation "
           f"{accum}: ms_per_step={ms:.3f} samples_per_s={TRAIN_BATCH / ms * 1e3:.2f} "
           f"images_per_s={TRAIN_BATCH * TRAIN_VIEWS / ms * 1e3:.2f} peak_memory_gb={peak_gb:.3f} "
           f"launches K1={launches[0]} K2={launches[1]} in {steps} steps", flush=True)
     print(f"   loss by step: {[round(v, 3) for v in curve]}", flush=True)
-    want = (10 * steps, 2 * steps)
+    want = (10 * steps, stem_per_step * steps)
     if launches != want:
-        fail(f"training {dtype_name}: kernel launches {launches}, expected {want} "
-             "(10 and 2 per optimizer step)")
+        fail(f"{label}: kernel launches {launches}, expected {want} "
+             f"(10 and {stem_per_step} per optimizer step)")
     if not all(math.isfinite(v) for v in curve) or not curve[-1] < curve[0]:
-        fail(f"training {dtype_name}: the loss is not finite or did not fall: {curve}")
+        fail(f"{label}: the loss is not finite or did not fall: {curve}")
 
     # device ops of one microbatch's forward and backward (not counted above)
     micro = {k: v[:TRAIN_BATCH // accum] for k, v in batch.items()}
@@ -369,7 +398,7 @@ def train_run(attention_ops, stem_ops, dtype_name: str) -> dict:
     return {"launches": launches, "ms": ms, "peak_gb": peak_gb, "device_ops": n_ops}
 
 
-def train_kernel_vs_plain(attention_ops, stem_ops) -> None:
+def train_kernel_vs_plain(attention_ops, stem_ops, config: Path = CONFIG) -> None:
     """One fp32 optimizer step (accumulation 2) of the kernel path and of the
     plain path from the same weights and batch, dropout 0: loss terms rel
     1e-4, global gradient norm before clipping rel 1e-3, the largest per-leaf
@@ -387,7 +416,7 @@ def train_kernel_vs_plain(attention_ops, stem_ops) -> None:
     from handmvnet_tpu_torch.train_step import (
         accumulate_grads, batch_to_device, build_model, create_train_state, optimizer_step)
 
-    cfg = train_config("float32")
+    cfg = train_config("float32", config)
     data = synthetic_batch(TRAIN_BATCH, TRAIN_VIEWS, cfg.data.image_size,
                            cfg.data.heatmap_size, seed=1)
     # The synthetic batch's random camera rotations put some joints of other
@@ -402,8 +431,11 @@ def train_kernel_vs_plain(attention_ops, stem_ops) -> None:
         results = []
         for path in ("kernel", "plain"):
             model = build_model(cfg, "cuda", seed=1, dropout=0.0)
+            # the heatmap head's last conv (HRNet's head is that one conv)
+            head = model.pose_net[-1] if isinstance(model.pose_net, torch.nn.Sequential) \
+                else model.pose_net
             with torch.no_grad():
-                for p in model.pose_net[3].parameters():
+                for p in head.parameters():
                     p.mul_(head_scale)
             state = create_train_state(model, cfg, 1000)
             with plain_kernels(attention_ops, stem_ops) if path == "plain" \
@@ -413,7 +445,7 @@ def train_kernel_vs_plain(attention_ops, stem_ops) -> None:
             norm = optimizer_step(state, cfg)
             results.append(({k: float(v) for k, v in losses.items()}, grads, float(norm)))
         (lk, gk, nk), (lp, gp, norm_p) = results
-        label = f"train fp32 kernel path vs plain path, head x{head_scale:g}"
+        label = f"{config.stem} train fp32 kernel path vs plain path, head x{head_scale:g}"
         for key in lp:
             rel = abs(lk[key] - lp[key]) / abs(lp[key])
             print(f"{label}, {key}: {lk[key]:.6f} vs {lp[key]:.6f} rel={rel:.3e} tol=1e-4",
@@ -439,8 +471,75 @@ def train_kernel_vs_plain(attention_ops, stem_ops) -> None:
             if not float(gk[name].abs().max()) > 0:
                 fail(f"training: {name} got no gradient through the kernels")
     if bad:
-        fail(f"training: the kernel path disagrees with the plain path: {bad}")
+        fail(f"{config.stem} training: the kernel path disagrees with the plain path: {bad}")
     print("   conv1.weight and every to_q/to_k/to_v weight have non-zero gradients", flush=True)
+
+
+def serve(attention_ops, stem_ops, cfg, label: str, dtype_name: str, with_vertices: bool,
+          stem_per_forward: int):
+    """The eval_fps protocol (b1 x v8 x 256^2, WARMUP + 2 x ITERS forwards)
+    with the launch counters set to 0 just before and read just after: K1
+    must launch 5 times a forward and K2 ``stem_per_forward`` times; the
+    outputs must be fp32, finite, on the card and of the expected shapes.
+    Returns (launches, outputs of the last step)."""
+    from handmvnet_tpu_torch.eval_fps import run_protocol
+
+    attention_ops.fused_attention.launches = 0
+    stem_ops.stem_conv_nchw.launches = 0
+    stats, out = run_protocol(cfg, views=8, dtype=DTYPES[dtype_name], warmup=WARMUP, iters=ITERS,
+                              device="cuda", seed=0, with_vertices=with_vertices)
+    torch.cuda.synchronize()
+    got = (attention_ops.fused_attention.launches, stem_ops.stem_conv_nchw.launches)
+    want = (5 * stats["forwards"], stem_per_forward * stats["forwards"])
+    step = "forward + mesh stage" if with_vertices else "forward only (--no-vertices)"
+    print(f"{label} {dtype_name} {step}: fps={stats['fps']:.2f} p50_ms={stats['p50_ms']:.4f} "
+          f"mean_ms={stats['mean_ms']:.4f} forwards={stats['forwards']} "
+          f"launches K1={got[0]} K2={got[1]}", flush=True)
+    if got != want:
+        fail(f"{label} {dtype_name} {step}: kernel launches {got}, expected {want} "
+             f"(5 and {stem_per_forward} per forward)")
+    shapes = {"joints_cam": (1, 21, 3), "joints_crop_img": (1, 8, 21, 2),
+              "heatmap": (1, 8, 21, 32, 32)}
+    if with_vertices:
+        shapes["vertices"] = (1, 778, 3)
+    elif "vertices" in out:
+        fail(f"{label} {dtype_name}: --no-vertices returned vertices")
+    for key, shape in shapes.items():
+        if tuple(out[key].shape) != shape or out[key].dtype != torch.float32:
+            fail(f"{label} {dtype_name}: {key} is {tuple(out[key].shape)} {out[key].dtype}")
+        if out[key].device.type != "cuda" or not torch.isfinite(out[key]).all():
+            fail(f"{label} {dtype_name}: {key} is not finite on the card ({out[key].device})")
+    return got, out
+
+
+def serve_kernel_vs_plain(attention_ops, stem_ops, cfg, label: str) -> None:
+    """The fp32 kernel path against the plain path on the card, same weights."""
+    from handmvnet_tpu_torch.eval_fps import protocol_step
+
+    step = protocol_step(cfg, views=8, dtype=torch.float32, device="cuda", seed=0)
+    with torch.inference_mode():
+        out_k = step()
+        with plain_kernels(attention_ops, stem_ops):
+            out_p = step()
+    # absolute tolerances: the paths differ only by the stem's and attention's
+    # summation order; heatmaps (|h| < 1 here) feed soft-argmax at x1000,
+    # whose coordinates are pixels of the 256^2 crop
+    path_tols = {"heatmap": 1e-4, "joints_crop_img": 5e-2, "joints_cam": 1e-4}
+    for key, tol in path_tols.items():
+        err = max_err(out_k[key], out_p[key])
+        print(f"{label} fp32 kernel path vs plain path {key}: max_abs_err={err:.3e} "
+              f"(max|plain|={float(out_p[key].abs().max()):.3e}) tol={tol:.1e}", flush=True)
+        if not err <= tol:
+            fail(f"{label}: fp32 kernel path disagrees with the plain path on {key}: "
+                 f"{err} > {tol}")
+    # The kernels end before the mesh stage, so joints_cam decides this
+    # comparison. The vertices are printed, not judged: the random-weight
+    # model's joints lie within ~0.02 mm of each other, where the IK turns a
+    # joint difference d into a vertex difference of up to ~1e5 d; the mesh
+    # stage itself is held card against CPU in phase 5.
+    err = max_err(out_k["vertices"], out_p["vertices"])
+    print(f"{label} fp32 kernel path vs plain path vertices: max_abs_err={err:.3e} mm "
+          f"(max|plain|={float(out_p['vertices'].abs().max()):.1f} mm), not judged", flush=True)
 
 
 def main() -> None:
@@ -451,7 +550,7 @@ def main() -> None:
 
     from handmvnet_tpu_torch.config import Config
     from handmvnet_tpu_torch.data.synthetic import synthetic_hand_joints
-    from handmvnet_tpu_torch.eval_fps import build_mesh_stage, protocol_step, run_protocol
+    from handmvnet_tpu_torch.eval_fps import build_mesh_stage
     from handmvnet_tpu_torch.ops import _build
     from handmvnet_tpu_torch.ops import attention as attention_ops
     from handmvnet_tpu_torch.ops import stem as stem_ops
@@ -469,7 +568,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     # 2. build
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     libs = _build.build_all()
     print(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in _build.build_logs.items():
@@ -485,42 +584,23 @@ def main() -> None:
                 fail(f"{name}: no tensor-core instruction in its {tag} kernel ({counts})")
 
     # 3 + 4. each kernel against its plain version, and times
+    t_phase = time.perf_counter()
     gen = torch.Generator("cuda").manual_seed(0)
     attn = {d: check_attention(attention_ops, d, gen) for d in DTYPES.values()}
     stem = {d: check_stem(stem_ops, d, gen) for d in DTYPES.values()}
+    print(f"phases 3-4 (kernels): {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     # 5. the main path, through the entry point a user calls
+    t_phase = time.perf_counter()
     cfg = Config.from_yaml(CONFIG)
     launches, joints_cam = {}, {}
     for name, dtype in DTYPES.items():
         for with_vertices in (True, False):
-            attention_ops.fused_attention.launches = 0
-            stem_ops.stem_conv_nchw.launches = 0
-            stats, out = run_protocol(cfg, views=8, dtype=dtype, warmup=WARMUP, iters=ITERS,
-                                      device="cuda", seed=0, with_vertices=with_vertices)
-            torch.cuda.synchronize()
-            got = (attention_ops.fused_attention.launches, stem_ops.stem_conv_nchw.launches)
-            want = (5 * stats["forwards"], stats["forwards"])
-            step = "forward + mesh stage" if with_vertices else "forward only (--no-vertices)"
-            print(f"main path {name} {step}: fps={stats['fps']:.2f} p50_ms={stats['p50_ms']:.4f} "
-                  f"mean_ms={stats['mean_ms']:.4f} forwards={stats['forwards']} "
-                  f"launches K1={got[0]} K2={got[1]}", flush=True)
-            if got != want:
-                fail(f"{name} {step}: kernel launches {got}, expected {want} "
-                     "(5 and 1 per forward)")
-            shapes = {"joints_cam": (1, 21, 3), "joints_crop_img": (1, 8, 21, 2),
-                      "heatmap": (1, 8, 21, 32, 32)}
+            got, out = serve(attention_ops, stem_ops, cfg, "main path", name, with_vertices,
+                             stem_per_forward=1)
             if with_vertices:
                 launches[dtype] = got
                 joints_cam[name] = out["joints_cam"]
-                shapes["vertices"] = (1, 778, 3)
-            elif "vertices" in out:
-                fail(f"{name}: --no-vertices returned vertices")
-            for key, shape in shapes.items():
-                if tuple(out[key].shape) != shape or out[key].dtype != torch.float32:
-                    fail(f"{name}: {key} is {tuple(out[key].shape)} {out[key].dtype}")
-                if out[key].device.type != "cuda" or not torch.isfinite(out[key]).all():
-                    fail(f"{name}: {key} is not finite on the card ({out[key].device})")
 
     # the mesh stage on the card against the same port function on the CPU
     mesh_cpu, mesh_gpu = build_mesh_stage("cpu"), build_mesh_stage("cuda")
@@ -549,32 +629,11 @@ def main() -> None:
             fail(f"the mesh stage returned vertices on {got.device}")
         print("mesh stage under sync debug mode 'error': no synchronising call", flush=True)
 
-    # the fp32 kernel path against the plain path on the card, same weights
-    step = protocol_step(cfg, views=8, dtype=torch.float32, device="cuda", seed=0)
-    with torch.inference_mode():
-        out_k = step()
-        with plain_kernels(attention_ops, stem_ops):
-            out_p = step()
-    # absolute tolerances: the paths differ only by the stem's and attention's
-    # summation order; heatmaps (|h| < 1 here) feed soft-argmax at x1000,
-    # whose coordinates are pixels of the 256^2 crop
-    path_tols = {"heatmap": 1e-4, "joints_crop_img": 5e-2, "joints_cam": 1e-4}
-    for key, tol in path_tols.items():
-        err = max_err(out_k[key], out_p[key])
-        print(f"fp32 kernel path vs plain path {key}: max_abs_err={err:.3e} "
-              f"(max|plain|={float(out_p[key].abs().max()):.3e}) tol={tol:.1e}", flush=True)
-        if not err <= tol:
-            fail(f"fp32 kernel path disagrees with the plain path on {key}: {err} > {tol}")
-    # The kernels end before the mesh stage, so joints_cam decides this
-    # comparison. The vertices are printed, not judged: the random-weight
-    # model's joints lie within ~0.02 mm of each other, where the IK turns a
-    # joint difference d into a vertex difference of up to ~1e5 d; the mesh
-    # stage itself is held card against CPU above.
-    err = max_err(out_k["vertices"], out_p["vertices"])
-    print(f"fp32 kernel path vs plain path vertices: max_abs_err={err:.3e} mm "
-          f"(max|plain|={float(out_p['vertices'].abs().max()):.1f} mm), not judged", flush=True)
+    serve_kernel_vs_plain(attention_ops, stem_ops, cfg, "main path")
+    print(f"phase 5 (main path): {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     # 6. the training path at the release recipe
+    t_phase = time.perf_counter()
     train_attn = {d: check_attention(attention_ops, d, gen, TRAIN_ATTN_SHAPES, TRAIN_ATTN_BATCH)
                   for d in DTYPES.values()}
     train_stem = {d: check_stem(stem_ops, d, gen, TRAIN_STEM_SHAPE) for d in DTYPES.values()}
@@ -582,8 +641,20 @@ def main() -> None:
     stem_bwd = {d: check_stem_backward(stem_ops, d, gen) for d in DTYPES.values()}
     train = {DTYPES[name]: train_run(attention_ops, stem_ops, name) for name in DTYPES}
     train_kernel_vs_plain(attention_ops, stem_ops)
+    print(f"phase 6 (training): {time.perf_counter() - t_phase:.1f} s", flush=True)
 
-    # 7. the record
+    # 7. the HRNet model: serving, then training (K2 is off this path)
+    t_phase = time.perf_counter()
+    hr_cfg = Config.from_yaml(HR_CONFIG)
+    hr_launches = {dtype: serve(attention_ops, stem_ops, hr_cfg, "HR", name, True,
+                                stem_per_forward=0)[0] for name, dtype in DTYPES.items()}
+    serve_kernel_vs_plain(attention_ops, stem_ops, hr_cfg, "HR")
+    hr_train = {DTYPES[name]: train_run(attention_ops, stem_ops, name, HR_CONFIG, stem_per_step=0)
+                for name in DTYPES}
+    train_kernel_vs_plain(attention_ops, stem_ops, HR_CONFIG)
+    print(f"phase 7 (HRNet): {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # 8. the record
     def times(t: dict) -> dict:
         return {"ms": t["kernel"]["device"], "plain_ms": t["plain"]["device"],
                 "library_ms": t["library"]["device"], "eager_ms": t["kernel"]["eager"],
@@ -629,6 +700,19 @@ def main() -> None:
             ("/train", "microbatch forward: x [40, 3, 256, 256]"),
             backward="torch.nn.grad.conv2d_weight", backward_ms=stem_bwd[dtype]["ms"],
             backward_max_abs_err=stem_bwd[dtype]["err"]))
+    # the HR paths call K1 at the same shapes: their times are the rows above
+    for dtype in DTYPES.values():
+        kernels.append(attention_record(
+            dtype, attn[dtype], ATTN_CALLS, hr_launches[dtype][0],
+            ("/hr", "HRNet forward: (168,168) x2 + (21,147) + (21,21) x2")))
+    for dtype in DTYPES.values():
+        kernels.append(attention_record(
+            dtype, train_attn[dtype], TRAIN_ATTN_CALLS, hr_train[dtype]["launches"][0],
+            ("/hr_train", "HRNet microbatch forward at batch 8: (105,105) x2 + (21,84) + "
+             "(21,21) x2"),
+            backward="PyTorch ops (ops/attention.py::attention_backward)",
+            backward_ms=attn_bwd[dtype]["ms"], backward_max_abs_err=attn_bwd[dtype]["err"]))
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the card check", flush=True)
     print(card_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

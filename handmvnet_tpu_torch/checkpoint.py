@@ -11,8 +11,10 @@ handmvnet_tpu/checkpoint.py:
   ChebConv weight [K+1, 1, I, O]  ->  weight (unchanged)
   bias                            ->  bias (unchanged)
 
-and module names lose the ``_N`` suffix to ``.N`` (``layer1_0`` ->
-``layer1.0``). The port's state_dict keys are the reference's torch keys.
+and module names lose every trailing ``_N`` to ``.N`` (``layer1_0`` ->
+``layer1.0``, ``fuse_layers_2_0_1_0`` -> ``fuse_layers.2.0.1.0``), the
+inverse of the JAX converter's merge of every numeric segment. The port's
+state_dict keys are the reference's torch keys.
 """
 
 from __future__ import annotations
@@ -29,8 +31,11 @@ _INDEXED = re.compile(r"^(.+)_(\d+)$")
 def _torch_path(path: tuple[str, ...]) -> str:
     segs = []
     for seg in path:
-        m = _INDEXED.match(seg)
-        segs.extend(m.groups() if m else (seg,))
+        indices = []
+        while m := _INDEXED.match(seg):
+            seg, index = m.groups()
+            indices.insert(0, index)
+        segs.extend([seg, *indices])
     return ".".join(segs)
 
 

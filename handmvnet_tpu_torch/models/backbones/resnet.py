@@ -8,7 +8,7 @@ batch shape, in training too. The other convolutions are plain large
 products and stay ``F.conv2d``, as the JAX package left them to XLA. With
 ``frozen_bn`` every BatchNorm of the backbone reads its running statistics
 in train mode as well (the config's ``freeze_bn``); its scale and shift
-still train.
+still train. ``BasicBlock`` is the block of HRNet's branches (hrnet.py).
 """
 
 from __future__ import annotations
@@ -34,6 +34,29 @@ class StemConv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return stem_ops.stem_conv_nchw(x, self.weight)
+
+
+class BasicBlock(nn.Module):
+    """Two 3x3 conv + BN with a residual; HRNet's branches chain four at
+    stride 1 and equal width, so they have no ``downsample``."""
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1):
+        super().__init__()
+        self.conv1 = nn.Conv2d(inplanes, planes, 3, stride, padding=1, bias=False)
+        self.bn1 = batch_norm(planes)
+        self.conv2 = nn.Conv2d(planes, planes, 3, 1, padding=1, bias=False)
+        self.bn2 = batch_norm(planes)
+        self.downsample = None
+        if stride != 1 or inplanes != planes:
+            self.downsample = nn.Sequential(
+                nn.Conv2d(inplanes, planes, 1, stride, bias=False), batch_norm(planes)
+            )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = F.relu(self.bn1(self.conv1(x)))
+        out = self.bn2(self.conv2(out))
+        residual = x if self.downsample is None else self.downsample(x)
+        return F.relu(out + residual)
 
 
 class Bottleneck(nn.Module):

@@ -3,12 +3,18 @@
 (``.train()``: BatchNorm batch statistics, dropout in the fusion blocks):
 
   rgb [b, v, H, W, 3]
-    -> per-view ResNet-50 "paper" backbone over b*v images (NCHW inside)
-    -> 1x1 pose_net head -> heatmaps [b*v, 21, H/8, W/8]
+    -> per-view backbone over b*v images (NCHW inside): ResNet-50 "paper"
+       (one map, 1024 ch at H/8) or HRNet w40/w64 (four maps, H/4..H/32)
+    -> pose_net head on the first map -> heatmaps [b*v, 21, H/8, W/8]
+       (ResNet: 1x1 conv, BN, ReLU, 1x1 conv; HRNet: one 3x3 stride-2 conv)
     -> soft-argmax at temperature 1000, in >= f32 -> coords [b*v, 21, 2]
-    -> SampleNet point features [b*v, 21, 512] (+ coords, + crop-FoV angles)
-    -> tokens [b, v*21, 524] -> CrossAttentionFusion -> [b, 21, 524]
+    -> one SampleNet per map, halving its channels, sampled at the same
+       H/8-space coordinates on every map (the reference's cross-scale
+       quirk, kept), concatenated (+ coords, + crop-FoV angles)
+    -> tokens [b, v*21, feat] -> CrossAttentionFusion -> [b, 21, feat]
     -> ChebConv GCN decoder -> joints_cam [b, 21, 3]
+
+feat is 524 for ResNet-50 "paper" (512 + 12) and 312 for HRNet w40 (300 + 12).
 
 The public layout is the JAX package's; the output dict is the same, every
 entry at >= f32.
@@ -16,10 +22,13 @@ entry at >= f32.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 from torch import nn
 
 from handmvnet_tpu_torch.config import ModelConfig
+from handmvnet_tpu_torch.models.backbones.hrnet import WIDTHS as HRNET_WIDTHS, HRNetBackbone
 from handmvnet_tpu_torch.models.backbones.resnet import ResNetBackbone
 from handmvnet_tpu_torch.models.fusion import CrossAttentionFusion
 from handmvnet_tpu_torch.models.layers import batch_norm
@@ -33,29 +42,37 @@ def _at_least_f32(dtype: torch.dtype) -> torch.dtype:
 
 
 class HandMvNet(nn.Module):
-    """The port covers the release configs' model: ResNet "50_paper", the
-    cross_attn fusion, root-relative output. ``dropout`` is the fusion
-    blocks' rate (the reference fixes 0.1; 0 trains without dropout)."""
+    """The port covers the release configs' models: ResNet "50_paper" or
+    HRNet w40 (and w64), the cross_attn fusion, root-relative output.
+    ``dropout`` is the fusion blocks' rate (the reference fixes 0.1; 0
+    trains without dropout). ``hrnet_branch_grouped`` is a TPU layout
+    option of the JAX package and is ignored."""
 
     def __init__(self, cfg: ModelConfig, image_size: int = 256, heatmap_size: int = 32,
                  dropout: float = 0.1):
         super().__init__()
-        if cfg.backbone != "resnet" or cfg.backbone_type != "50_paper":
-            raise ValueError(f"the port has the ResNet 50_paper backbone only, not "
-                             f"{cfg.backbone} {cfg.backbone_type}")
         if cfg.fusion != "cross_attn":
             raise ValueError(f"the port has the cross_attn fusion only, not {cfg.fusion}")
         self.cfg = cfg
         self.image_size = image_size
         self.heatmap_size = heatmap_size
         j = cfg.num_joints
-        channels = 1024
-        self.backbone = ResNetBackbone(cfg.backbone_type, frozen_bn=cfg.freeze_bn)
-        self.pose_net = nn.Sequential(
-            nn.Conv2d(channels, 512, 1), batch_norm(512), nn.ReLU(), nn.Conv2d(512, j, 1)
-        )
-        self.sample_nets = nn.ModuleList([SampleNet(channels, channels // 2)])
-        feat_dim = cfg.feat_dim
+        if cfg.backbone == "resnet" and cfg.backbone_type == "50_paper":
+            channels = (1024,)
+            self.backbone = ResNetBackbone(cfg.backbone_type, frozen_bn=cfg.freeze_bn)
+            self.pose_net = nn.Sequential(
+                nn.Conv2d(1024, 512, 1), batch_norm(512), nn.ReLU(), nn.Conv2d(512, j, 1))
+        elif cfg.backbone == "hrnet" and cfg.backbone_type in HRNET_WIDTHS:
+            channels = HRNET_WIDTHS[cfg.backbone_type]
+            self.backbone = HRNetBackbone(cfg.backbone_type)
+            self.pose_net = nn.Conv2d(channels[0], j, 3, 2, padding=1)  # H/4 -> H/8
+        else:
+            raise ValueError(f"the port has the ResNet 50_paper and HRNet "
+                             f"{'/'.join(HRNET_WIDTHS)} backbones, not "
+                             f"{cfg.backbone} {cfg.backbone_type}")
+        self.sample_nets = nn.ModuleList(SampleNet(c, c // 2) for c in channels)
+        # the token width of the backbone's own maps, as the JAX model takes it
+        feat_dim = dataclasses.replace(cfg, backbone_channels=channels).feat_dim
         self.joints_late_fusion = CrossAttentionFusion(
             feat_dim, max_tokens=j * cfg.num_views, custom_query_length=j,
             num_layers=cfg.fusion_layers, dropout=dropout, add_pos="sin" in cfg.pos_enc,
@@ -75,14 +92,17 @@ class HandMvNet(nn.Module):
         j = cfg.num_joints
         x = rgb.reshape(b * v, *rgb.shape[2:]).permute(0, 3, 1, 2)  # NCHW view
 
-        feat = self.backbone(x)
-        heatmaps = self.pose_net(feat)  # [b*v, J, h, w]
+        feats = self.backbone(x)
+        if isinstance(feats, torch.Tensor):
+            feats = [feats]
+        heatmaps = self.pose_net(feats[0])  # [b*v, J, h, w]
         # the x1000 softmax overflows bf16: promote, never downcast
         joint_coords = soft_argmax_2d(heatmaps.to(_at_least_f32(heatmaps.dtype))).to(rgb.dtype)
 
-        tokens = self.sample_nets[0](feat, joint_coords)  # [b*v, J, 512]
+        # [b*v, J, C_i / 2] per map, then the encodings; one concatenation
+        parts = [net(f, joint_coords) for net, f in zip(self.sample_nets, feats)]
         if "pos2d" in cfg.pos_enc:
-            tokens = torch.cat([tokens, joint_coords], dim=-1)
+            parts.append(joint_coords)
         if "crop" in cfg.pos_enc:
             if bboxes is None or intrinsics is None:
                 raise ValueError("the crop encoding needs bboxes and intrinsics")
@@ -91,7 +111,8 @@ class HandMvNet(nn.Module):
             intr = intrinsics.reshape(b * v, 4).to(enc_dtype)
             cc = centered_coordinates(box_corner_points(boxes), intr[:, 2], intr[:, 3])
             fov = fov_angles(cc, intr[:, 0], intr[:, 1]).reshape(b * v, 1, 10)
-            tokens = torch.cat([tokens, fov.to(tokens.dtype).expand(b * v, j, 10)], dim=-1)
+            parts.append(fov.to(joint_coords.dtype).expand(b * v, j, 10))
+        tokens = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
 
         tokens_b = tokens.reshape(b, v * j, tokens.shape[-1])
         joints_cam = self.joints_decoder(self.joints_late_fusion(tokens_b, generator))

@@ -12,6 +12,8 @@ and for each one JSON line with:
   * graph_ms: the same step captured once in a CUDA graph and replayed,
     i.e. the card's time when the host does not hold it back;
   * top: the kernels with the most device time per step.
+  * forward_gflops: the forward's work (``forward_gflops``, counted on the
+    CPU), beside which device_ms gives the rate the card reaches.
 Then one line with the same keys for the mesh stage alone at batch 1 (fp32,
 hand-like joints), where wall_p50_ms is its eager time per call.
 fp32 runs in full fp32 (TF32 off).
@@ -27,10 +29,12 @@ from collections import defaultdict
 import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
+from torch.utils.flop_counter import FlopCounterMode
 
 from handmvnet_tpu_torch.config import Config
 from handmvnet_tpu_torch.data.synthetic import synthetic_hand_joints
-from handmvnet_tpu_torch.eval_fps import DTYPES, build_mesh_stage, protocol_step
+from handmvnet_tpu_torch.eval_fps import (
+    DTYPES, build_mesh_stage, build_model, model_inputs, protocol_step)
 
 
 def graph_ms(fn, calls: int = 1, replays: int = 50) -> float:
@@ -94,6 +98,18 @@ def profile_calls(fn, warmup: int = 10, iters: int = 50, profiled: int = 10,
     }
 
 
+def forward_gflops(cfg: Config, views: int = 8, image_size: int = 256) -> float:
+    """GFLOPs (2 per multiply-add) of one protocol forward at batch 1, as
+    torch's flop counter sees the convolutions and matmuls of the model run
+    on the CPU (where K1 is its plain version); the mesh stage is not
+    counted. A count of the work, the same on any device."""
+    model = build_model(cfg, views, image_size, device="cpu")
+    inputs = model_inputs(views, image_size, "cpu", torch.float32)
+    with torch.inference_mode(), FlopCounterMode(display=False) as counter:
+        model(*inputs)
+    return counter.get_total_flops() / 1e9
+
+
 def profile_forward(cfg: Config, views: int, dtype: torch.dtype,
                     with_vertices: bool = True) -> dict:
     meta = {"dtype": str(dtype).removeprefix("torch."), "views": views,
@@ -123,9 +139,10 @@ def main(argv=None) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = Config.from_yaml(args.config)
+    gflops = forward_gflops(cfg, args.views)
     for dtype in DTYPES.values():
-        print(json.dumps(profile_forward(cfg, args.views, dtype, not args.no_vertices)),
-              flush=True)
+        record = profile_forward(cfg, args.views, dtype, not args.no_vertices)
+        print(json.dumps({"config": args.config, "forward_gflops": gflops, **record}), flush=True)
     print(json.dumps(profile_mesh()), flush=True)
 
 

@@ -20,7 +20,9 @@ and validation batch j is seed ``VAL_SEED + j`` in every pass. An epoch has
 the train split's size // batch steps and validation the val split's;
 ``--steps-per-epoch`` cuts both (smoke runs) while the LR milestones stay
 sized from the full epoch. The model starts from PyTorch's default
-initialisation (the ImageNet backbone graft is not ported yet).
+initialisation; with ``backbone_pretrained`` the backbone then takes the
+ImageNet weights at ``backbone_pretrained_path`` (``pretrained.py``), before
+``--resume``, so a restored checkpoint wins over the graft.
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ from handmvnet_tpu_torch.engine import (
     save_checkpoint,
     write_results_json,
 )
+from handmvnet_tpu_torch.pretrained import load_pretrained_backbone
 from handmvnet_tpu_torch.train_step import (
     batch_to_device,
     build_model,
@@ -108,7 +111,9 @@ def main(argv=None) -> None:
         val_steps = min(val_steps, args.steps_per_epoch)
     val_seeds = range(VAL_SEED, VAL_SEED + val_steps)
 
-    state = create_train_state(build_model(cfg, str(device), seed), cfg, sched_steps)
+    model = build_model(cfg, str(device), seed)
+    load_pretrained_backbone(model, cfg)
+    state = create_train_state(model, cfg, sched_steps)
     ckpt = CheckpointManager(out_dir / "checkpoints")
     if args.resume and ckpt.last_path.exists():
         restore_checkpoint(ckpt.last_path, state)

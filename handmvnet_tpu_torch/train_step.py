@@ -11,11 +11,13 @@ one generator it is given. Losses stay on the device.
 
 With ``compute_dtype: bfloat16`` the forward and backward run on a bf16 copy
 of the parameters, cast inside the graph so the gradients land in fp32 on the
-fp32 master parameters; the rgb input is cast too. Unlike the JAX package,
-which casts every parameter, the BatchNorm scale and shift stay fp32 in that
-copy: PyTorch's batch norm takes bf16 activations with fp32 affine
-parameters and fp32 running statistics, but not bf16 affine parameters with
-fp32 statistics. Running statistics and losses stay fp32.
+fp32 master parameters; the rgb input is cast too. The JAX package casts
+every parameter; flax's batch norm then computes in fp32 with the
+bf16-rounded scale and shift. PyTorch's batch norm takes bf16 activations
+with fp32 affine parameters and fp32 running statistics, but not bf16 affine
+parameters with fp32 statistics, so the copy rounds the BatchNorm scale and
+shift through bf16 and keeps them fp32: the same values in the same
+precision. Running statistics and losses stay fp32.
 """
 
 from __future__ import annotations
@@ -82,11 +84,16 @@ def batch_to_device(batch: Mapping[str, np.ndarray], device: str | torch.device
 
 
 def _bf16_compute_params(model: nn.Module) -> Dict[str, torch.Tensor]:
-    """{name: parameter cast to bf16}, except the BatchNorm affine ones."""
-    keep = {id(p) for m in model.modules() if isinstance(m, nn.BatchNorm2d)
-            for p in m.parameters()}
-    return {n: p if id(p) in keep else p.to(torch.bfloat16)
-            for n, p in model.named_parameters()}
+    """{name: parameter cast to bf16}; the BatchNorm affine ones rounded to
+    bf16 and kept fp32, all of them in one flat tensor (three launches, not
+    two for each of the hundreds of BatchNorm parameters)."""
+    bn_affine = {id(p) for m in model.modules() if isinstance(m, nn.BatchNorm2d)
+                 for p in m.parameters()}
+    named = dict(model.named_parameters())
+    bn_names = [n for n, p in named.items() if id(p) in bn_affine]  # 1-D: scale, shift
+    flat = torch.cat([named[n] for n in bn_names]).to(torch.bfloat16).float()
+    rounded = dict(zip(bn_names, flat.split([named[n].numel() for n in bn_names])))
+    return {n: rounded[n] if n in rounded else p.to(torch.bfloat16) for n, p in named.items()}
 
 
 def forward_loss(model: HandMvNet, cfg: Config, batch: Mapping[str, torch.Tensor],

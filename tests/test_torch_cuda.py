@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, their
 autograd Functions against autograd through the plain versions, a training
-step through both kernels, and the mesh stage against the CPU, on the card.
+step through both kernels, the HRNet model's forward and training step
+through K1, and the mesh stage against the CPU, on the card.
 
 Marked ``cuda``: they skip on a machine without a CUDA device (a kernel
 written in CUDA has no CPU mode). On a host with an NVIDIA Hopper GPU:
@@ -196,6 +197,86 @@ def test_train_step_trains_through_both_kernels(card, compute_dtype):
     watched = ["backbone.conv1.weight"] + [
         n for n in params if n.endswith(("to_q.weight", "to_k.weight", "to_v.weight"))]
     assert len(watched) == 1 + 15
+    for name in watched:
+        grad = params[name].grad
+        assert grad is not None and grad.dtype == torch.float32, name
+        assert float(grad.abs().max()) > 0, name
+
+
+HR_CONFIG = "HO3D_HandMvNet_HR.yaml"
+
+
+def _hr_config(compute_dtype: str = "float32"):
+    import dataclasses
+    from pathlib import Path
+
+    from handmvnet_tpu_torch.config import Config
+
+    cfg = Config.from_yaml(Path(__file__).resolve().parents[1] / "configs" / "release" / HR_CONFIG)
+    return dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, compute_dtype=compute_dtype))
+
+
+def test_hr_forward_kernel_path_matches_plain_path(card, monkeypatch):
+    """The HRNet model's eval forward at b1 x v8 x 256^2 through K1 (5
+    launches, no K2) against the same forward through the plain versions,
+    with chip_smoke.py's tolerances."""
+    from handmvnet_tpu_torch.eval_fps import protocol_step
+    from handmvnet_tpu_torch.ops import attention as attention_ops
+
+    step = protocol_step(_hr_config(), views=8, dtype=torch.float32, device="cuda",
+                         with_vertices=False)
+    counts = (fused_attention.launches, stem_conv_nchw.launches)
+    with torch.inference_mode():
+        out_k = step()
+        torch.cuda.synchronize()
+        assert (fused_attention.launches - counts[0], stem_conv_nchw.launches - counts[1]) == (5, 0)
+        monkeypatch.setattr(attention_ops, "fused_attention", attention_plain)
+        out_p = step()
+    shapes = {"heatmap": (1, 8, 21, 32, 32), "joints_crop_img": (1, 8, 21, 2),
+              "joints_cam": (1, 21, 3)}
+    for key, tol in {"heatmap": 1e-4, "joints_crop_img": 5e-2, "joints_cam": 1e-4}.items():
+        assert tuple(out_k[key].shape) == shapes[key] and torch.isfinite(out_k[key]).all(), key
+        err = float((out_k[key] - out_p[key]).abs().max())
+        assert err <= tol, (key, err)
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_hr_train_step_trains_through_attention(card, compute_dtype):
+    """A training step of the HRNet model on the card launches K1 5 times a
+    microbatch and K2 never, and every parameter above K1 and the stem gets
+    a non-zero gradient: backbone.conv1.weight, each to_q/to_k/to_v and each
+    of the four SampleNets' convs. Every map is sampled at the heatmap's
+    coordinates (the reference's cross-scale quirk), so the H/32 map covers
+    only the heatmap's top-left; the head is set so that the joints land
+    there: one tap that reads the padding at row and column 0, and minus the
+    (non-negative) features everywhere else."""
+    import dataclasses
+
+    from handmvnet_tpu_torch.data.synthetic import synthetic_batch
+    from handmvnet_tpu_torch.train_step import (
+        accumulate_grads, batch_to_device, build_model, create_train_state)
+
+    cfg = _hr_config(compute_dtype)
+    cfg = dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, selected_views=(0, 1, 2)),
+        data=dataclasses.replace(cfg.data, image_size=64, heatmap_size=8))
+    model = build_model(cfg, "cuda", seed=0)
+    with torch.no_grad():
+        model.pose_net.weight.zero_()
+        model.pose_net.weight[:, :, 0, 0] = -1.0
+        model.pose_net.bias.zero_()
+    state = create_train_state(model, cfg, steps_per_epoch=10)
+    batch = batch_to_device(synthetic_batch(4, 3, 64, 8, seed=1), card)
+    counts = (fused_attention.launches, stem_conv_nchw.launches)
+    losses = accumulate_grads(state, cfg, batch, torch.Generator(card).manual_seed(0), 2)
+    torch.cuda.synchronize()
+    assert (fused_attention.launches - counts[0], stem_conv_nchw.launches - counts[1]) == (10, 0)
+    assert torch.isfinite(losses["loss"]) and losses["loss"].dtype == torch.float32
+    params = dict(state.model.named_parameters())
+    watched = ["backbone.conv1.weight"] + [
+        n for n in params if n.endswith(("to_q.weight", "to_k.weight", "to_v.weight"))] + [
+        f"sample_nets.{i}.conv.0.weight" for i in range(4)]
+    assert len(watched) == 1 + 15 + 4
     for name in watched:
         grad = params[name].grad
         assert grad is not None and grad.dtype == torch.float32, name
