@@ -46,8 +46,29 @@ Phases; any failure exits nonzero and prints no result:
      optimizer steps per dtype (K1 10 launches a step, K2 none, a finite
      falling loss) and one fp32 step of the kernel path against the plain
      path (phase 6's tolerances and scaled-head rule);
-  8. a {"kernels": [...]} line (the HR rows carry K1's launches on the HR
-     paths), then the {"ok": true, ...} line last.
+  8. the data path and eval.py on tar shards in the config's layout: the
+     JPEG decoder (nvJPEG) against the shipped fixture's libjpeg pixels at
+     one frame and at the eval batch's 80, and its time a frame and a KB
+     on the fixture (a smooth frame, 27 KB) and on a batch of the smoke
+     shards' noise frames (~170 KB), so that it scales to real frames;
+     HO3D-layout shards written on the
+     card (write_synthetic_ho3d_shards, 5 views of 480 x 640, coherent
+     geometry; 9 train shards, of which val reads two, and 3 test shards);
+     one val batch through make_device_prepare on the card against the CPU
+     on the same decoded frames; K1 at the eval shapes (batch 16 x 5 views)
+     and K2 at 80 images, against their plain versions and timed; eval.py on
+     a reference-layout checkpoint (random weights, ``model.`` prefix and
+     the legacy ``pose_net.conv.`` keys) for the ResNet and the HR release
+     configs in fp32, the counters set to 0 just before and read just after
+     (K1 5 launches a forward, K2 1 on ResNet and 0 on HR), val.json and
+     test.json with every metric finite, vertex metrics included (the
+     synthetic MANO model); one eval batch's forward, kernel path against
+     plain path (phase 5's tolerances); samples/s of the loader with its
+     preprocessing alone, of the whole eval loop, and of the eval forward on
+     a synthetic batch of the same shape, for both models;
+  9. a {"kernels": [...]} line (the HR rows carry K1's launches on the HR
+     paths, the /eval rows the launches of phase 8's eval runs), then the
+     {"ok": true, ...} line last.
 Each phase prints its seconds.
 
 fp32 means fp32 here: TF32 is switched off for matmuls and cuDNN convs.
@@ -93,6 +114,15 @@ TRAIN_ATTN_SHAPES = ((105, 105), (21, 84), (21, 21))
 TRAIN_ATTN_CALLS = {(105, 105): 2, (21, 84): 1, (21, 21): 2}  # launches per microbatch
 TRAIN_STEM_SHAPE = (40, 256, 256)
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# eval (phase 8): the reference eval.py's batch 16 x 5 views of 256^2
+EVAL_BATCH, EVAL_VIEWS = 16, 5
+EVAL_STEM_SHAPE = (EVAL_BATCH * EVAL_VIEWS, 256, 256)
+SHARD_SAMPLES = 4  # samples a smoke shard: val reads 2 shards (8), test 3 (12)
+THROUGHPUT_BATCHES = 24  # over the 12 test samples, resampled
+# card against CPU on the same frames: tests/test_torch_data.py's CPU-vs-JAX limits
+PREP_ATOL = {"rgb": 1e-5, "heatmap": 1e-6}
+# kernel path against plain path of an eval forward (phase 5's serving limits)
+PATH_TOLS = {"heatmap": 1e-4, "joints_crop_img": 5e-2, "joints_cam": 1e-4}
 # mesh stage, card against CPU, on the same fp32 joints: vertices of |v| up to
 # ~400 mm, where the fp32 stage differs from float64 by up to ~5e-3 mm and the
 # card's kernels round in other orders than the CPU's
@@ -342,7 +372,7 @@ def train_run(attention_ops, stem_ops, dtype_name: str, config: Path = CONFIG,
     label = f"{config.stem} training {dtype_name}"
     accum = accumulation(cfg)
     state = create_train_state(build_model(cfg, "cuda", seed=0), cfg,
-                               steps_per_epoch=cfg.split_size("train") // TRAIN_BATCH)
+                               steps_per_epoch=cfg.data.split_size("train") // TRAIN_BATCH)
     data = synthetic_batch(TRAIN_BATCH, TRAIN_VIEWS, cfg.data.image_size, cfg.data.heatmap_size,
                            seed=0)
     data["extrinsic"][:] = np.eye(4, dtype=np.float32)
@@ -512,6 +542,20 @@ def serve(attention_ops, stem_ops, cfg, label: str, dtype_name: str, with_vertic
     return got, out
 
 
+def compare_paths(out_k: dict, out_p: dict, label: str) -> None:
+    """The fp32 kernel path's outputs against the plain path's, PATH_TOLS:
+    absolute, as the paths differ only by the stem's and attention's
+    summation order; heatmaps (|h| < 1 here) feed soft-argmax at x1000,
+    whose coordinates are pixels of the 256^2 crop."""
+    for key, tol in PATH_TOLS.items():
+        err = max_err(out_k[key], out_p[key])
+        print(f"{label} fp32 kernel path vs plain path {key}: max_abs_err={err:.3e} "
+              f"(max|plain|={float(out_p[key].abs().max()):.3e}) tol={tol:.1e}", flush=True)
+        if not err <= tol:
+            fail(f"{label}: fp32 kernel path disagrees with the plain path on {key}: "
+                 f"{err} > {tol}")
+
+
 def serve_kernel_vs_plain(attention_ops, stem_ops, cfg, label: str) -> None:
     """The fp32 kernel path against the plain path on the card, same weights."""
     from handmvnet_tpu_torch.eval_fps import protocol_step
@@ -521,17 +565,7 @@ def serve_kernel_vs_plain(attention_ops, stem_ops, cfg, label: str) -> None:
         out_k = step()
         with plain_kernels(attention_ops, stem_ops):
             out_p = step()
-    # absolute tolerances: the paths differ only by the stem's and attention's
-    # summation order; heatmaps (|h| < 1 here) feed soft-argmax at x1000,
-    # whose coordinates are pixels of the 256^2 crop
-    path_tols = {"heatmap": 1e-4, "joints_crop_img": 5e-2, "joints_cam": 1e-4}
-    for key, tol in path_tols.items():
-        err = max_err(out_k[key], out_p[key])
-        print(f"{label} fp32 kernel path vs plain path {key}: max_abs_err={err:.3e} "
-              f"(max|plain|={float(out_p[key].abs().max()):.3e}) tol={tol:.1e}", flush=True)
-        if not err <= tol:
-            fail(f"{label}: fp32 kernel path disagrees with the plain path on {key}: "
-                 f"{err} > {tol}")
+    compare_paths(out_k, out_p, label)
     # The kernels end before the mesh stage, so joints_cam decides this
     # comparison. The vertices are printed, not judged: the random-weight
     # model's joints lie within ~0.02 mm of each other, where the IK turns a
@@ -540,6 +574,270 @@ def serve_kernel_vs_plain(attention_ops, stem_ops, cfg, label: str) -> None:
     err = max_err(out_k["vertices"], out_p["vertices"])
     print(f"{label} fp32 kernel path vs plain path vertices: max_abs_err={err:.3e} mm "
           f"(max|plain|={float(out_p['vertices'].abs().max()):.1f} mm), not judged", flush=True)
+
+
+def write_eval_config(src: Path, out_dir: Path, shard_dir: Path, mano: Path) -> Path:
+    """A copy of a release config whose dataset_dir is the smoke shards, with
+    the split sizes at their sample counts (HO3D's hard-coded 1369 and 2706
+    would cycle the few samples for 85 and 169 batches) and the synthetic
+    MANO model for the vertex metrics."""
+    text = src.read_text()
+    text, n_data = re.subn(r"(?m)^  dataset_dir: .*$", (
+        f"  dataset_dir: {shard_dir}\n  split_size_overrides:\n"
+        f"    val: {2 * SHARD_SAMPLES}\n    test: {3 * SHARD_SAMPLES}"), text)
+    text, n_mano = re.subn(r"(?m)^  mano_models_dir: .*$", f"  mano_models_dir: {mano}", text)
+    if (n_data, n_mano) != (1, 1):
+        fail(f"{src.name}: no dataset_dir or mano_models_dir line to point at the smoke data")
+    path = out_dir / src.name
+    path.write_text(text)
+    return path
+
+
+def write_reference_checkpoint(cfg, path: Path) -> None:
+    """Random weights (eval_fps.random_state_dict) as the reference's old
+    checkpoints name them: a Lightning ``model.`` prefix, ``pose_net.conv.``
+    and, with one SampleNet, ``sample_net.``, so that eval.py's remaps run."""
+    from handmvnet_tpu_torch.eval_fps import build_model, random_state_dict
+
+    model = build_model(cfg, views=cfg.model.num_views, image_size=cfg.data.image_size,
+                        device="cpu")
+    state = random_state_dict(model, seed=0)
+    single = not any(k.startswith("sample_nets.1.") for k in state)
+    legacy = {}
+    for key, value in state.items():
+        if key.startswith("pose_net."):
+            key = "pose_net.conv." + key[len("pose_net."):]
+        elif single and key.startswith("sample_nets.0."):
+            key = "sample_net." + key[len("sample_nets.0."):]
+        legacy["model." + key] = value
+    torch.save(legacy, path)
+
+
+def decode_timed(payloads: list[bytes], what: str, card_line: str) -> torch.Tensor:
+    """nvJPEG's decode of a batch, timed over 5 calls after one; prints ms
+    a batch, a frame and a KB of JPEG (its time grows with the coded size,
+    so a KB is what carries over to frames of other content)."""
+    from handmvnet_tpu_torch.data.jpeg import decode_jpeg
+
+    decode_jpeg(payloads, "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        frames = decode_jpeg(payloads, "cuda")
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / 5 * 1e3
+    kb = sum(map(len, payloads)) / 1e3
+    print(f"nvJPEG decode of {what} ({len(payloads)} frames of 480 x 640, "
+          f"{kb / len(payloads):.1f} KB each): {ms:.3f} ms, {ms / len(payloads):.4f} ms a frame, "
+          f"{ms / kb * 1e3:.3f} us a KB; {card_line}", flush=True)
+    return frames
+
+
+def data_path_check(cfg, card_line: str) -> None:
+    """One val batch (EVAL_BATCH samples, JPEG bytes) through
+    make_device_prepare on the card, and through it on the CPU with the
+    frames the card decoded (the decoders are compared on the fixture);
+    also the decode's time on those frames."""
+    from handmvnet_tpu_torch.data.ho3d import HO3DDataset
+    from handmvnet_tpu_torch.data.loader import BatchLoader
+    from handmvnet_tpu_torch.train import make_device_prepare
+
+    batch = next(iter(BatchLoader(HO3DDataset(cfg.data, "val", device="cuda"), EVAL_BATCH, 1)))
+    flat = [p for views in batch["full_jpeg"] for p in views]
+    frames = decode_timed(flat, "one eval batch of the smoke shards", card_line)
+    cpu_batch = {k: v for k, v in batch.items() if k != "full_jpeg"}
+    cpu_batch["full_rgb"] = frames.cpu().numpy().reshape(EVAL_BATCH, -1, *frames.shape[1:])
+    got = make_device_prepare(cfg, "cuda")(batch)
+    ref = make_device_prepare(cfg, "cpu")(cpu_batch)
+    if set(got) != set(ref):
+        fail(f"make_device_prepare: keys {sorted(got)} on the card, {sorted(ref)} on the CPU")
+    for key, value in ref.items():
+        err = max_err(got[key].cpu(), value)
+        tol = PREP_ATOL.get(key, 0.0)
+        if key in PREP_ATOL:
+            print(f"data path card vs CPU {key} {tuple(value.shape)}: max_abs_err={err:.3e} "
+                  f"tol={tol:.0e}", flush=True)
+        if got[key].device.type != "cuda" or got[key].dtype != value.dtype or not err <= tol:
+            fail(f"make_device_prepare on the card disagrees with the CPU on {key}: {err}")
+    print(f"   labels exact; heatmap max {float(ref['heatmap'].max()):.3f}", flush=True)
+
+
+def eval_run(attention_ops, stem_ops, config: Path, ckpt: Path, label: str,
+             stem_per_forward: int) -> tuple[int, int]:
+    """eval.py on the card in fp32 (val, then test), the counters set to 0
+    just before and read just after: K1 5 launches a forward, K2
+    ``stem_per_forward``; val.json and test.json beside the checkpoint with
+    every metric finite, vertex metrics included."""
+    from handmvnet_tpu_torch import eval as port_eval
+    from handmvnet_tpu_torch.config import Config
+
+    cfg = Config.from_yaml(config)
+    forwards = sum(max(1, cfg.data.split_size(s) // EVAL_BATCH) for s in ("val", "test"))
+    attention_ops.fused_attention.launches = 0
+    stem_ops.stem_conv_nchw.launches = 0
+    t0 = time.perf_counter()
+    results = port_eval.main(["--config", str(config), "--checkpoint", str(ckpt)])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = (attention_ops.fused_attention.launches, stem_ops.stem_conv_nchw.launches)
+    print(f"{label} eval.py fp32: {forwards} forwards of {EVAL_BATCH} x {EVAL_VIEWS} views in "
+          f"{secs:.2f} s (load and first calls included), launches K1={got[0]} K2={got[1]}",
+          flush=True)
+    if got != (5 * forwards, stem_per_forward * forwards):
+        fail(f"{label} eval: kernel launches {got}, expected 5 and {stem_per_forward} per "
+             f"forward over {forwards} forwards")
+    for mode in ("val", "test"):
+        written = json.loads((ckpt.parent / f"{mode}.json").read_text())[0]
+        values = np.concatenate([np.ravel(v) for v in written.values()])
+        print(f"   {mode}.json: " + ", ".join(f"{k}={v:.4f}" for k, v in written.items()
+                                              if not isinstance(v, list)), flush=True)
+        if written != results[mode] or f"{mode}_mpvpe" not in written:
+            fail(f"{label} eval: {mode}.json lacks the vertex metrics or differs from the run")
+        if not np.isfinite(values).all():
+            fail(f"{label} eval: {mode}.json has a metric that is not finite: {written}")
+    return got
+
+
+def eval_kernel_vs_plain(attention_ops, stem_ops, config: Path, ckpt: Path, label: str) -> None:
+    """One prepared val batch through the eval forward, kernel path against
+    plain path, same weights (PATH_TOLS)."""
+    import dataclasses as dc
+
+    from handmvnet_tpu_torch.checkpoint import load_torch_checkpoint
+    from handmvnet_tpu_torch.config import Config
+    from handmvnet_tpu_torch.eval_fps import build_model
+    from handmvnet_tpu_torch.train import build_dataloaders
+    from handmvnet_tpu_torch.train_step import eval_step
+
+    cfg = Config.from_yaml(config)
+    cfg = dc.replace(cfg, data=dc.replace(cfg.data, batch_size=EVAL_BATCH))
+    model = build_model(cfg, views=EVAL_VIEWS, device="cpu")
+    load_torch_checkpoint(ckpt, model)
+    model = model.cuda()
+    val, _ = build_dataloaders(cfg, "cuda")
+    batch = next(iter(val))
+    out_k = eval_step(model, batch)
+    with plain_kernels(attention_ops, stem_ops):
+        out_p = eval_step(model, batch)
+    compare_paths(out_k, out_p, f"{label} eval batch")
+
+
+def eval_throughput(config: Path, label: str, card_line: str) -> dict:
+    """samples/s, fp32, batch 16 x 5 views: the test loader with its
+    preparation alone (tar read, nvJPEG, crops and heatmaps), the whole eval
+    loop (the same and engine.evaluate's forward, mesh stage and metrics),
+    and the eval forward alone on a synthetic batch of the same shape."""
+    import dataclasses as dc
+
+    from handmvnet_tpu_torch.config import Config
+    from handmvnet_tpu_torch.data.ho3d import HO3DDataset
+    from handmvnet_tpu_torch.data.loader import BatchLoader
+    from handmvnet_tpu_torch.data.synthetic import synthetic_batch
+    from handmvnet_tpu_torch.engine import evaluate, make_vertices_fn
+    from handmvnet_tpu_torch.eval_fps import build_model
+    from handmvnet_tpu_torch.train import make_device_prepare
+    from handmvnet_tpu_torch.train_step import batch_to_device, eval_step
+
+    cfg = Config.from_yaml(config)
+    cfg = dc.replace(cfg, data=dc.replace(cfg.data, batch_size=EVAL_BATCH))
+
+    def loader(steps: int) -> BatchLoader:
+        return BatchLoader(HO3DDataset(cfg.data, "test", device="cuda"), EVAL_BATCH, steps,
+                           device_prepare=make_device_prepare(cfg, "cuda"))
+
+    samples = THROUGHPUT_BATCHES * EVAL_BATCH
+    list(loader(1))  # first calls
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in loader(THROUGHPUT_BATCHES):
+        pass
+    torch.cuda.synchronize()
+    loader_sps = samples / (time.perf_counter() - t0)
+
+    model = build_model(cfg, views=EVAL_VIEWS, device="cuda")
+    vertices_fn = make_vertices_fn(cfg, "cuda")
+    evaluate(model, loader(1), cfg, "test", vertices_fn)  # first calls
+    t0 = time.perf_counter()
+    evaluate(model, loader(THROUGHPUT_BATCHES), cfg, "test", vertices_fn)  # ends in a host read
+    eval_sps = samples / (time.perf_counter() - t0)
+
+    batch = batch_to_device(synthetic_batch(EVAL_BATCH, EVAL_VIEWS, with_heatmaps=False), "cuda")
+    for _ in range(3):
+        eval_step(model, batch)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(10):
+        eval_step(model, batch)
+    end.record()
+    end.synchronize()
+    fwd_ms = start.elapsed_time(end) / 10
+    print(f"{label} eval throughput fp32, batch {EVAL_BATCH} x {EVAL_VIEWS} views, "
+          f"{THROUGHPUT_BATCHES} batches: loader + preprocess alone {loader_sps:.2f} samples/s; "
+          f"whole eval loop {eval_sps:.2f} samples/s; eval forward alone {fwd_ms:.3f} ms, "
+          f"{EVAL_BATCH / fwd_ms * 1e3:.2f} samples/s; {card_line}", flush=True)
+    return {"loader_sps": loader_sps, "eval_sps": eval_sps, "forward_ms": fwd_ms}
+
+
+def data_and_eval_phase(attention_ops, stem_ops, gen, card_line: str) -> dict:
+    """Phase 8 (see the module docstring). Returns the kernel rows' inputs."""
+    import tempfile
+
+    from handmvnet_tpu_torch.config import Config
+    from handmvnet_tpu_torch.data import jpeg
+    from handmvnet_tpu_torch.data.synthetic import write_synthetic_ho3d_shards
+    from handmvnet_tpu_torch.models.mano import synthetic_mano_model
+
+    print(f"JPEG decoder on the card: nvJPEG (CUDA toolkit; backend {jpeg.NVJPEG_BACKEND}, "
+          "GPU_HYBRID), chosen because the card has no libjpeg for native/libtario.so and "
+          "no jpeglib.h to build it", flush=True)
+    payload, ref = jpeg.jpeg_fixture()
+    for n in (1, EVAL_BATCH * EVAL_VIEWS):
+        out = jpeg.decode_jpeg([payload] * n, "cuda").cpu().numpy().astype(np.int16)
+        diff = np.abs(out - ref[None])
+        print(f"nvJPEG vs libjpeg (cv2) on the fixture, batch {n}: max_abs={int(diff.max())} "
+              f"(limit {jpeg.NVJPEG_MAX_ABS_DIFF}) mean_abs={diff.mean():.4f} "
+              f"(limit {jpeg.NVJPEG_MEAN_ABS_DIFF})", flush=True)
+        if not (diff.max() <= jpeg.NVJPEG_MAX_ABS_DIFF
+                and diff.mean() <= jpeg.NVJPEG_MEAN_ABS_DIFF):
+            fail(f"nvJPEG's decode of the fixture is off libjpeg's pixels at batch {n}")
+    decode_timed([payload] * (EVAL_BATCH * EVAL_VIEWS), "the fixture", card_line)
+
+    (REPO / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=REPO / "build", prefix="chip_smoke_") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        for split, shards in (("train", 9), ("test", 3)):
+            write_synthetic_ho3d_shards(tmp / "data", num_shards=shards,
+                                        samples_per_shard=SHARD_SAMPLES, num_views=EVAL_VIEWS,
+                                        split=split, seed=len(split),
+                                        consistent_geometry=True, device="cuda")
+        mano = synthetic_mano_model()
+        np.savez(tmp / "MANO_RIGHT.npz", v_template=mano.v_template, shapedirs=mano.shapedirs,
+                 posedirs=mano.posedirs, J_regressor=mano.j_regressor,
+                 weights=mano.lbs_weights, f=mano.faces, hands_mean=mano.hands_mean)
+        print(f"wrote 12 HO3D-layout shards ({12 * SHARD_SAMPLES * EVAL_VIEWS} frames "
+              f"encoded by nvJPEG) in {time.perf_counter() - t0:.2f} s", flush=True)
+
+        rows = {}
+        for label, src, stem_per_forward in (("ResNet", CONFIG, 1), ("HR", HR_CONFIG, 0)):
+            run_dir = tmp / label
+            run_dir.mkdir()
+            config = write_eval_config(src, run_dir, tmp / "data", tmp / "MANO_RIGHT.npz")
+            cfg = Config.from_yaml(config)
+            if label == "ResNet":
+                data_path_check(cfg, card_line)
+            ckpt = run_dir / "reference.pth"
+            write_reference_checkpoint(cfg, ckpt)
+            rows[label] = {"launches": eval_run(attention_ops, stem_ops, config, ckpt, label,
+                                                stem_per_forward)}
+            eval_kernel_vs_plain(attention_ops, stem_ops, config, ckpt, label)
+            rows[label].update(eval_throughput(config, label, card_line))
+
+    # K1 at the eval shapes (batch 16, 5 views) and K2 at 80 images
+    rows["attn"] = {d: check_attention(attention_ops, d, gen, TRAIN_ATTN_SHAPES, EVAL_BATCH)
+                    for d in DTYPES.values()}
+    rows["stem"] = {d: check_stem(stem_ops, d, gen, EVAL_STEM_SHAPE) for d in DTYPES.values()}
+    return rows
 
 
 def main() -> None:
@@ -575,8 +873,8 @@ def main() -> None:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"   {name}: {line.strip()}", flush=True)
-    for name, path in sorted(libs.items()):
-        counts = tensor_core_counts(path)
+    for name in _build.KERNELS:  # jpeg.cpp is host code over nvJPEG
+        counts = tensor_core_counts(libs[name])
         for fn, c in counts.items():
             print(f"   {name}: {c} HMMA/HGMMA in {fn}", flush=True)
         for tag in MMA_KERNELS:
@@ -654,7 +952,12 @@ def main() -> None:
     train_kernel_vs_plain(attention_ops, stem_ops, HR_CONFIG)
     print(f"phase 7 (HRNet): {time.perf_counter() - t_phase:.1f} s", flush=True)
 
-    # 8. the record
+    # 8. the data path and eval.py on shards in the config's layout
+    t_phase = time.perf_counter()
+    evals = data_and_eval_phase(attention_ops, stem_ops, gen, card_line)
+    print(f"phase 8 (data path and eval): {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # 9. the record
     def times(t: dict) -> dict:
         return {"ms": t["kernel"]["device"], "plain_ms": t["plain"]["device"],
                 "library_ms": t["library"]["device"], "eager_ms": t["kernel"]["eager"],
@@ -712,6 +1015,18 @@ def main() -> None:
              "(21,21) x2"),
             backward="PyTorch ops (ops/attention.py::attention_backward)",
             backward_ms=attn_bwd[dtype]["ms"], backward_max_abs_err=attn_bwd[dtype]["err"]))
+    # eval runs fp32: its rows carry the fp32 launches of phase 8's eval runs
+    fp32 = torch.float32
+    eval_calls = TRAIN_ATTN_CALLS  # the training microbatch's shapes, at batch 16
+    kernels.append(attention_record(
+        fp32, evals["attn"][fp32], eval_calls, evals["ResNet"]["launches"][0],
+        ("/eval", "eval forward at batch 16 x 5 views: (105,105) x2 + (21,84) + (21,21) x2")))
+    kernels.append(stem_record(fp32, evals["stem"][fp32], evals["ResNet"]["launches"][1],
+                               ("/eval", "eval forward: x [80, 3, 256, 256]")))
+    kernels.append(attention_record(
+        fp32, evals["attn"][fp32], eval_calls, evals["HR"]["launches"][0],
+        ("/eval_hr", "HRNet eval forward at batch 16 x 5 views: (105,105) x2 + (21,84) + "
+         "(21,21) x2")))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the card check", flush=True)
     print(card_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

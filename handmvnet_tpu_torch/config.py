@@ -120,6 +120,16 @@ class DataConfig:
     def num_views(self) -> int:
         return len(self.selected_views)
 
+    def split_size(self, split: str) -> int:
+        """Samples in a split of the dataset: the reference's fixed epoch
+        sizes, which size every epoch and the LR milestones, with the
+        overrides; "train" includes "val" under add_val_to_train."""
+        sizes = dict(SPLIT_SIZES[self.name])
+        sizes.update(self.split_size_overrides or {})
+        if split == "train" and self.add_val_to_train:
+            split = "train+val"
+        return sizes[split]
+
 
 @dataclass(frozen=True)
 class ModelConfig:
@@ -203,16 +213,6 @@ class Config:
     def root_idx(self) -> int:
         """The dataset's root camera (the view whose frame the 3D labels use)."""
         return {"ho3d": 0, "dexycb": 2, "mvhand": 3}[self.data.name]
-
-    def split_size(self, split: str) -> int:
-        """Samples in a split of the dataset: the reference's fixed epoch
-        sizes, which size every epoch and the LR milestones, with the
-        config's overrides; "train" includes "val" under add_val_to_train."""
-        sizes = dict(SPLIT_SIZES[self.data.name])
-        sizes.update(self.data.split_size_overrides or {})
-        if split == "train" and self.data.add_val_to_train:
-            split = "train+val"
-        return sizes[split]
 
     @staticmethod
     def from_yaml(path: str | Path) -> "Config":

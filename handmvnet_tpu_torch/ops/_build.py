@@ -1,4 +1,6 @@
-"""Build and load the port's CUDA kernels (csrc/*.cu) at first use.
+"""Build and load the port's native sources (csrc/) at first use: the CUDA
+kernels (attention.cu, stem.cu) and the nvJPEG binding (jpeg.cpp, host code
+linked with the toolkit's libnvjpeg).
 
 Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared
 library with a plain C interface, in ``build/kernels/`` at the repository root
@@ -6,7 +8,7 @@ library with a plain C interface, in ``build/kernels/`` at the repository root
 hash of its source, the shared headers (csrc/*.cuh) and the flags, so an
 edited source or header is rebuilt and a stale one
 never loaded. All sources build in parallel, one ``nvcc`` process each, the
-first time any kernel is needed; nothing is compiled when a module is imported.
+first time any of them is needed; nothing is compiled when a module is imported.
 """
 
 from __future__ import annotations
@@ -21,7 +23,13 @@ from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("attention", "stem")
+# name: (source file, flags after the source); the kernels are the .cu sources
+SOURCES = {
+    "attention": ("attention.cu", ()),
+    "stem": ("stem.cu", ()),
+    "jpeg": ("jpeg.cpp", ("-lnvjpeg",)),
+}
+KERNELS = ("attention", "stem")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -44,10 +52,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
+    source, libs = SOURCES[name]
     digest = hashlib.sha256()
-    for src in (_CSRC / f"{name}.cu", *sorted(_CSRC.glob("*.cuh"))):  # a header edit rebuilds too
+    for src in (_CSRC / source, *sorted(_CSRC.glob("*.cuh"))):  # a header edit rebuilds too
         digest.update(src.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(NVCC_FLAGS + libs).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -63,7 +72,8 @@ def build_all() -> dict[str, Path]:
     procs = {}
     for name in todo:
         tmp = paths[name].with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{name}.cu")]
+        source, libs = SOURCES[name]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / source), *libs]
         procs[name] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     failed = []
@@ -73,15 +83,16 @@ def build_all() -> dict[str, Path]:
         if proc.returncode == 0:
             tmp.replace(paths[name])  # atomic: readers never see half a file
         else:
-            failed.append(f"--- {name}.cu (nvcc exit {proc.returncode}) ---\n{out}")
+            failed.append(f"--- {SOURCES[name][0]} (nvcc exit {proc.returncode}) ---\n{out}")
     if failed:
-        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+        raise RuntimeError("native build failed:\n" + "\n".join(failed))
     return paths
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of csrc/<name>.cu, building the sources first if
-    needed. Declares ``hmv_error_string``; callers declare their entry."""
+    """The loaded library of the source ``name`` (a key of SOURCES), building
+    the sources first if needed. Declares ``hmv_error_string``; callers
+    declare their entries."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:

@@ -13,11 +13,14 @@ record per epoch with the LR its steps used, and after training a validation
 of the best checkpoint written to ``val.json``. fp32 is full fp32 (TF32 off);
 ``compute_dtype: bfloat16`` trains in bf16 on fp32 master weights.
 
-Batches: the data path and the loader are not ported yet, so every batch is
+Batches: the training loop still takes every batch from
 ``data/synthetic.synthetic_batch``, the stand-in the JAX trainer itself falls
-back to when no dataset tars are mounted. Optimizer step s trains on seed s,
-and validation batch j is seed ``VAL_SEED + j`` in every pass. An epoch has
-the train split's size // batch steps and validation the val split's;
+back to when no dataset tars are mounted: the train split (augmentation, the
+reservoir-shuffled train loader) is not ported yet. The val and test loaders
+on the config's shards are (``build_dataloaders``, which eval.py uses).
+Optimizer step s trains on seed s, and validation batch j is seed
+``VAL_SEED + j`` in every pass. An epoch has the train split's size // batch
+steps and validation the val split's;
 ``--steps-per-epoch`` cuts both (smoke runs) while the LR milestones stay
 sized from the full epoch. The model starts from PyTorch's default
 initialisation; with ``backbone_pretrained`` the backbone then takes the
@@ -34,9 +37,16 @@ import signal
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from handmvnet_tpu_torch.config import Config
+from handmvnet_tpu_torch.data.dexycb import DexYCBDataset
+from handmvnet_tpu_torch.data.ho3d import TRAIN_TODO, HO3DDataset
+from handmvnet_tpu_torch.data.jpeg import decode_jpeg
+from handmvnet_tpu_torch.data.loader import BatchLoader
+from handmvnet_tpu_torch.data.mvhand import MVHandDataset
+from handmvnet_tpu_torch.data.pipeline import preprocess_views
 from handmvnet_tpu_torch.data.synthetic import synthetic_batch
 from handmvnet_tpu_torch.engine import (
     CheckpointManager,
@@ -57,6 +67,57 @@ from handmvnet_tpu_torch.train_step import (
 )
 
 VAL_SEED = 1 << 30  # validation batches' seeds start here, far from the train steps'
+DATASETS = {"ho3d": HO3DDataset, "dexycb": DexYCBDataset, "mvhand": MVHandDataset}
+# a collated batch's host-only fields, which the model, losses and metrics do not read
+HOST_ONLY = ("full_rgb", "full_jpeg", "mv_sample_id", "root_idx", "intrinsic_mat",
+             "joints_img", "mano_pose", "mano_shape", "all_joints_cam", "all_root_joints",
+             "cropped_bboxes")
+
+
+def make_device_prepare(cfg: Config, device: str | torch.device = "cuda"):
+    """Collated batch -> batch on ``device``: the frames there (JPEG bytes
+    decoded by nvJPEG on a card; on the CPU the reader has decoded them),
+    then ``preprocess_views`` (crops, black-image rule, heatmaps) and the
+    labels as tensors, without the host-only fields. Augmentation comes
+    with the train split."""
+    device = torch.device(device)
+
+    def prepare(batch: dict) -> dict:
+        if "full_jpeg" in batch:
+            flat = [jpeg for views in batch["full_jpeg"] for jpeg in views]
+            frames = decode_jpeg(flat, device)
+            frames = frames.reshape(len(batch["full_jpeg"]), -1, *frames.shape[1:])
+        else:
+            frames = torch.from_numpy(batch["full_rgb"]).to(device)
+        any_visible = torch.from_numpy(~np.all(batch["joints_img_mask"], axis=-1)).to(device)
+        out = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+               for k, v in batch.items() if k not in HOST_ONLY}
+        out["rgb"], out["heatmap"] = preprocess_views(
+            frames, out["bboxes"], out["joints_crop_img"], any_visible,
+            image_size=cfg.data.image_size, heatmap_size=cfg.data.heatmap_size)
+        return out
+
+    return prepare
+
+
+def build_dataloaders(cfg: Config, device: str | torch.device = "cuda",
+                      splits: tuple[str, ...] = ("val", "test")) -> tuple[BatchLoader, ...]:
+    """A loader for each split asked for, over the config's shards, in that
+    order: epochs of the split's size // batch batches (at least one), each
+    batch prepared on ``device``. The train split raises until augmentation
+    is ported."""
+    if "train" in splits:
+        raise NotImplementedError(TRAIN_TODO)
+    ds_cls = DATASETS[cfg.data.name]
+    bs = cfg.data.batch_size
+    loaders = []
+    for split in splits:
+        ds = ds_cls(cfg.data, split, device=device)
+        loaders.append(BatchLoader(ds, batch_size=bs,
+                                   steps_per_epoch=max(1, ds.num_samples() // bs),
+                                   device_prepare=make_device_prepare(cfg, device)))
+    return tuple(loaders)
+
 
 
 def accumulation(cfg: Config) -> int:
@@ -104,9 +165,9 @@ def main(argv=None) -> None:
     seed = cfg.train.seed
     accum = accumulation(cfg)
     bs = cfg.data.batch_size
-    sched_steps = max(1, cfg.split_size("train") // bs)  # the LR milestones' epoch
+    sched_steps = max(1, cfg.data.split_size("train") // bs)  # the LR milestones' epoch
     steps_per_epoch = args.steps_per_epoch or sched_steps
-    val_steps = max(1, cfg.split_size("val") // bs)
+    val_steps = max(1, cfg.data.split_size("val") // bs)
     if args.steps_per_epoch:
         val_steps = min(val_steps, args.steps_per_epoch)
     val_seeds = range(VAL_SEED, VAL_SEED + val_steps)

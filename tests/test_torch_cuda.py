@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, their
 autograd Functions against autograd through the plain versions, a training
 step through both kernels, the HRNet model's forward and training step
-through K1, and the mesh stage against the CPU, on the card.
+through K1, the mesh stage against the CPU, and the data path (nvJPEG
+against libjpeg's pixels, make_device_prepare against the CPU, one eval
+batch through both kernels), on the card.
 
 Marked ``cuda``: they skip on a machine without a CUDA device (a kernel
 written in CUDA has no CPU mode). On a host with an NVIDIA Hopper GPU:
@@ -339,3 +341,116 @@ def test_mesh_stage_does_no_host_work(card):
         finally:
             torch.cuda.set_sync_debug_mode(0)
     assert out.device.type == "cuda"
+
+
+# The data path on the card: nvJPEG (data/jpeg.py) against the shipped
+# fixture's libjpeg pixels, make_device_prepare on the card against the CPU
+# on the same decoded frames, and one eval batch through both kernels.
+
+@pytest.mark.parametrize("batch", [1, 80], ids=["single", "eval-batch"])
+def test_nvjpeg_decodes_the_fixture(card, batch):
+    """Within data/jpeg.py's limits of cv2's pixels, at one frame and at the
+    eval batch's 80 frames (where the library takes its other decode path)."""
+    import numpy as np
+
+    from handmvnet_tpu_torch.data import jpeg
+
+    payload, ref = jpeg.jpeg_fixture()
+    out = jpeg.decode_jpeg([payload] * batch, card)
+    assert out.device.type == "cuda" and out.dtype == torch.uint8
+    assert tuple(out.shape) == (batch, 480, 640, 3)
+    assert bool((out == out[:1]).all())
+    diff = np.abs(out[0].cpu().numpy().astype(np.int16) - ref)
+    assert diff.max() <= jpeg.NVJPEG_MAX_ABS_DIFF and diff.mean() <= jpeg.NVJPEG_MEAN_ABS_DIFF
+
+
+def test_nvjpeg_encode_round_trip(card):
+    """The card's encoder (quality 95, 4:2:0) gives JPEGs that decode to the
+    image: quality 95 quantises each DCT coefficient by 1-12 levels, so a
+    smooth frame comes back within a few levels (a sanity bound, max 16,
+    mean 2)."""
+    import numpy as np
+
+    from handmvnet_tpu_torch.data import jpeg
+
+    _, ref = jpeg.jpeg_fixture()
+    encoded = jpeg.encode_jpeg(torch.from_numpy(ref).to(card)[None])
+    assert encoded[0][:2] == b"\xff\xd8"
+    back = jpeg.decode_jpeg(encoded, card)[0].cpu().numpy().astype(np.int16)
+    diff = np.abs(back - ref)
+    assert diff.max() <= 16 and diff.mean() <= 2.0
+
+
+def _shard_config(tmp_path, views: int, image: int):
+    import dataclasses
+    from pathlib import Path
+
+    from handmvnet_tpu_torch.config import Config
+    from handmvnet_tpu_torch.data.synthetic import write_synthetic_ho3d_shards
+
+    write_synthetic_ho3d_shards(tmp_path, num_shards=9, samples_per_shard=1, num_views=views,
+                                consistent_geometry=True, device="cuda")
+    cfg = Config.from_yaml(Path(__file__).resolve().parents[1] / "configs" / "release"
+                           / "HO3D_HandMvNet.yaml")
+    return dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, selected_views=tuple(range(views))),
+        data=dataclasses.replace(cfg.data, dataset_dir=str(tmp_path), image_size=image,
+                                 heatmap_size=image // 8, batch_size=2,
+                                 selected_views=tuple(range(views)),
+                                 split_size_overrides={"val": 2, "test": 2}))
+
+
+def test_device_prepare_on_card_matches_cpu(card, tmp_path):
+    """One val batch of card-written shards: make_device_prepare on the card
+    (nvJPEG, then the crops and heatmaps there) against the same function on
+    the CPU fed the card's decoded frames, so that only the preprocessing is
+    compared (the decoders are held against each other above). rgb 1e-5,
+    heatmap 1e-6, as tests/test_torch_data.py holds the CPU against JAX;
+    labels exact."""
+    from handmvnet_tpu_torch.data.ho3d import HO3DDataset
+    from handmvnet_tpu_torch.data.jpeg import decode_jpeg
+    from handmvnet_tpu_torch.data.loader import collate
+    from handmvnet_tpu_torch.train import make_device_prepare
+
+    cfg = _shard_config(tmp_path, views=3, image=256)
+    batch = collate(list(HO3DDataset(cfg.data, "val", device="cuda")))
+    flat = [p for views in batch["full_jpeg"] for p in views]
+    frames = decode_jpeg(flat, card).cpu().numpy().reshape(2, 3, 480, 640, 3)
+    cpu_batch = {k: v for k, v in batch.items() if k != "full_jpeg"}
+    cpu_batch["full_rgb"] = frames
+    got = make_device_prepare(cfg, card)(batch)
+    ref = make_device_prepare(cfg, "cpu")(cpu_batch)
+    assert set(got) == set(ref)
+    for key, value in ref.items():
+        assert got[key].device.type == "cuda" and got[key].dtype == value.dtype, key
+        atol = {"rgb": 1e-5, "heatmap": 1e-6}.get(key, 0.0)
+        err = float((got[key].cpu().double() - value.double()).abs().max())
+        assert err <= atol, (key, err)
+    assert float(ref["heatmap"].max()) > 0.1
+
+
+def test_eval_batch_kernel_path_matches_plain_path(card, tmp_path, monkeypatch):
+    """One prepared eval batch (2 samples x 2 views at 64^2) through the eval
+    forward: K1 5 launches and K2 1, and the plain path within chip_smoke.py's
+    serving tolerances."""
+    from handmvnet_tpu_torch.eval_fps import build_model
+    from handmvnet_tpu_torch.ops import attention as attention_ops
+    from handmvnet_tpu_torch.ops import stem as stem_ops
+    from handmvnet_tpu_torch.train import build_dataloaders
+    from handmvnet_tpu_torch.train_step import eval_step
+
+    cfg = _shard_config(tmp_path, views=2, image=64)
+    model = build_model(cfg, views=2, image_size=64, device="cuda")
+    val, _ = build_dataloaders(cfg, card)
+    batch = next(iter(val))
+    counts = (fused_attention.launches, stem_conv_nchw.launches)
+    out_k = eval_step(model, batch)
+    torch.cuda.synchronize()
+    assert (fused_attention.launches - counts[0], stem_conv_nchw.launches - counts[1]) == (5, 1)
+    monkeypatch.setattr(attention_ops, "fused_attention", attention_plain)
+    monkeypatch.setattr(stem_ops, "stem_conv_nchw", stem_conv_plain)
+    out_p = eval_step(model, batch)
+    for key, tol in {"heatmap": 1e-4, "joints_crop_img": 5e-2, "joints_cam": 1e-4}.items():
+        assert out_k[key].device.type == "cuda" and torch.isfinite(out_k[key]).all(), key
+        err = float((out_k[key] - out_p[key]).abs().max())
+        assert err <= tol, (key, err)
