@@ -66,9 +66,27 @@ Phases; any failure exits nonzero and prints no result:
      plain path (phase 5's tolerances); samples/s of the loader with its
      preprocessing alone, of the whole eval loop, and of the eval forward on
      a synthetic batch of the same shape, for both models;
-  9. a {"kernels": [...]} line (the HR rows carry K1's launches on the HR
-     paths, the /eval rows the launches of phase 8's eval runs), then the
-     {"ok": true, ...} line last.
+  9. training on shards (train.py's data path): 9 HO3D-layout train shards
+     of 16 samples written on the card (the release configs' train split
+     reads all 9, add_val_to_train: 144 samples, 9 steps of 16; val the
+     first and the last); one train batch's 80 crops through the
+     augmentation at fixed draws, card against CPU (2e-4 but for posterize
+     flips of 4/255 on at most 1e-4 of the elements), then from a
+     generator on the card under the sync debug mode "error", its device
+     ms and launches; the train loader alone (resampled stream, nvJPEG,
+     crops, augmentation, heatmaps on its preparer stage) in samples/s;
+     train.main on the HO3D release config, 2 epochs in fp32 and in bf16,
+     once more in fp32 with the preparer stage off (device_prefetch=False)
+     and once with --resume for a third epoch, the counters set to 0 just
+     before and read just after each run: K1 10 and K2 2 launches every
+     optimizer step, 5 and 1 a validation forward, every logged value
+     finite; ms a step from CUDA events between consecutive steps, against
+     phase 6's synthetic step; one fp32 step of the kernel path against the
+     plain path on an augmented shard batch (phase 6's limits); train.main
+     on the HR config, one epoch of 2 steps (K1 10 a step, K2 none);
+ 10. a {"kernels": [...]} line (the HR rows carry K1's launches on the HR
+     paths, the /eval rows the launches of phase 8's eval runs, the
+     /train_shards rows phase 9's), then the {"ok": true, ...} line last.
 Each phase prints its seconds.
 
 fp32 means fp32 here: TF32 is switched off for matmuls and cuDNN convs.
@@ -123,6 +141,17 @@ THROUGHPUT_BATCHES = 24  # over the 12 test samples, resampled
 PREP_ATOL = {"rgb": 1e-5, "heatmap": 1e-6}
 # kernel path against plain path of an eval forward (phase 5's serving limits)
 PATH_TOLS = {"heatmap": 1e-4, "joints_crop_img": 5e-2, "joints_cam": 1e-4}
+# training on shards (phase 9): 9 train shards of 16 samples, all of which the
+# release configs' train split reads (add_val_to_train), so 144 samples, 9 steps
+# of 16 an epoch; val reads the first and the last shard, 2 batches
+SHARD_TRAIN_SAMPLES, SHARD_EPOCHS = 16, 2
+# augmentation card against CPU at the same draws (tests/test_torch_augment.py's
+# chain rule at 256^2): the box blur's cumsums round in other orders, 4 S eps / w
+# = 6.1e-5 at S = 256 and w >= 2 (a blur of k >= 3 crop px at a magnification
+# >= 0.5), and the 2x sharpening (2 img - smooth) triples that: 2e-4; elsewhere
+# posterize flips, each exactly 4/255 (to that limit), on at most 1e-4 of the
+# elements
+AUG_ATOL, AUG_FLIP_SHARE = 2e-4, 1e-4
 # mesh stage, card against CPU, on the same fp32 joints: vertices of |v| up to
 # ~400 mm, where the fp32 stage differs from float64 by up to ~5e-3 mm and the
 # card's kernels round in other orders than the CPU's
@@ -428,10 +457,12 @@ def train_run(attention_ops, stem_ops, dtype_name: str, config: Path = CONFIG,
     return {"launches": launches, "ms": ms, "peak_gb": peak_gb, "device_ops": n_ops}
 
 
-def train_kernel_vs_plain(attention_ops, stem_ops, config: Path = CONFIG) -> None:
+def train_kernel_vs_plain(attention_ops, stem_ops, config: Path = CONFIG,
+                          batch: dict | None = None, what: str = "a synthetic batch") -> None:
     """One fp32 optimizer step (accumulation 2) of the kernel path and of the
-    plain path from the same weights and batch, dropout 0: loss terms rel
-    1e-4, global gradient norm before clipping rel 1e-3, the largest per-leaf
+    plain path from the same weights and batch (by default a synthetic batch,
+    every view at the root camera's pose), dropout 0: loss terms rel 1e-4,
+    global gradient norm before clipping rel 1e-3, the largest per-leaf
     difference printed.
 
     Two sets of weights. With PyTorch's initialisation the heatmap head's
@@ -447,15 +478,17 @@ def train_kernel_vs_plain(attention_ops, stem_ops, config: Path = CONFIG) -> Non
         accumulate_grads, batch_to_device, build_model, create_train_state, optimizer_step)
 
     cfg = train_config("float32", config)
-    data = synthetic_batch(TRAIN_BATCH, TRAIN_VIEWS, cfg.data.image_size,
-                           cfg.data.heatmap_size, seed=1)
-    # The synthetic batch's random camera rotations put some joints of other
-    # views within millimetres of the camera plane, where the g2d/p2d
-    # projection turns rounding into pixels (g2d ~3000 px a joint). With
-    # every view at the root camera's pose each joint projects from ~0.5 m,
-    # and the loss terms measure the two paths, not the pole.
-    data["extrinsic"][:] = np.eye(4, dtype=np.float32)
-    batch = batch_to_device(data, "cuda")
+    if batch is None:
+        data = synthetic_batch(TRAIN_BATCH, TRAIN_VIEWS, cfg.data.image_size,
+                               cfg.data.heatmap_size, seed=1)
+        # The synthetic batch's random camera rotations put some joints of
+        # other views within millimetres of the camera plane, where the
+        # g2d/p2d projection turns rounding into pixels (g2d ~3000 px a
+        # joint). With every view at the root camera's pose each joint
+        # projects from ~0.5 m, and the loss terms measure the two paths, not
+        # the pole.
+        data["extrinsic"][:] = np.eye(4, dtype=np.float32)
+        batch = batch_to_device(data, "cuda")
     bad = []
     for head_scale in (1.0, 1e-3):
         results = []
@@ -475,7 +508,8 @@ def train_kernel_vs_plain(attention_ops, stem_ops, config: Path = CONFIG) -> Non
             norm = optimizer_step(state, cfg)
             results.append(({k: float(v) for k, v in losses.items()}, grads, float(norm)))
         (lk, gk, nk), (lp, gp, norm_p) = results
-        label = f"{config.stem} train fp32 kernel path vs plain path, head x{head_scale:g}"
+        label = (f"{config.stem} train fp32 on {what}, kernel path vs plain path, "
+                 f"head x{head_scale:g}")
         for key in lp:
             rel = abs(lk[key] - lp[key]) / abs(lp[key])
             print(f"{label}, {key}: {lk[key]:.6f} vs {lp[key]:.6f} rel={rel:.3e} tol=1e-4",
@@ -576,19 +610,24 @@ def serve_kernel_vs_plain(attention_ops, stem_ops, cfg, label: str) -> None:
           f"(max|plain|={float(out_p['vertices'].abs().max()):.1f} mm), not judged", flush=True)
 
 
-def write_eval_config(src: Path, out_dir: Path, shard_dir: Path, mano: Path) -> Path:
+def write_eval_config(src: Path, out_dir: Path, shard_dir: Path, mano: Path,
+                      sizes: dict | None = None, compute_dtype: str = "float32") -> Path:
     """A copy of a release config whose dataset_dir is the smoke shards, with
-    the split sizes at their sample counts (HO3D's hard-coded 1369 and 2706
-    would cycle the few samples for 85 and 169 batches) and the synthetic
-    MANO model for the vertex metrics."""
+    the split sizes at their sample counts (``sizes``; by default phase 8's:
+    HO3D's hard-coded 1369 and 2706 would cycle the few samples for 85 and
+    169 batches), the synthetic MANO model for the vertex metrics and the
+    training's compute dtype."""
+    sizes = sizes or {"val": 2 * SHARD_SAMPLES, "test": 3 * SHARD_SAMPLES}
     text = src.read_text()
     text, n_data = re.subn(r"(?m)^  dataset_dir: .*$", (
         f"  dataset_dir: {shard_dir}\n  split_size_overrides:\n"
-        f"    val: {2 * SHARD_SAMPLES}\n    test: {3 * SHARD_SAMPLES}"), text)
+        + "\n".join(f"    {k}: {v}" for k, v in sizes.items())), text)
     text, n_mano = re.subn(r"(?m)^  mano_models_dir: .*$", f"  mano_models_dir: {mano}", text)
-    if (n_data, n_mano) != (1, 1):
-        fail(f"{src.name}: no dataset_dir or mano_models_dir line to point at the smoke data")
-    path = out_dir / src.name
+    text, n_train = re.subn(r"(?m)^train:$", f"train:\n  compute_dtype: {compute_dtype}", text)
+    if (n_data, n_mano, n_train) != (1, 1, 1):
+        fail(f"{src.name}: no dataset_dir, mano_models_dir or train: line to point at the "
+             "smoke data")
+    path = out_dir / f"{src.stem}_{compute_dtype}.yaml"
     path.write_text(text)
     return path
 
@@ -743,7 +782,7 @@ def eval_throughput(config: Path, label: str, card_line: str) -> dict:
 
     def loader(steps: int) -> BatchLoader:
         return BatchLoader(HO3DDataset(cfg.data, "test", device="cuda"), EVAL_BATCH, steps,
-                           device_prepare=make_device_prepare(cfg, "cuda"))
+                           device_prepare=make_device_prepare(cfg, "cuda"), device="cuda")
 
     samples = THROUGHPUT_BATCHES * EVAL_BATCH
     list(loader(1))  # first calls
@@ -838,6 +877,247 @@ def data_and_eval_phase(attention_ops, stem_ops, gen, card_line: str) -> dict:
                     for d in DTYPES.values()}
     rows["stem"] = {d: check_stem(stem_ops, d, gen, EVAL_STEM_SHAPE) for d in DTYPES.values()}
     return rows
+
+
+def augmentation_check(cfg, card_line: str) -> None:
+    """One train batch's crops (EVAL_BATCH x 5 views of the smoke shards at
+    their own crop scales) through apply_augmentation at fixed draws, drawn
+    once on the CPU and moved: card against CPU (AUG_ATOL, posterize flips
+    of exactly 4/255 on at most AUG_FLIP_SHARE of the elements); then
+    augment_batch from a generator on the card under the sync debug mode
+    "error"; its device ms and launches (profiler) and host ms."""
+    from handmvnet_tpu_torch.data import augment
+    from handmvnet_tpu_torch.data.ho3d import HO3DDataset
+    from handmvnet_tpu_torch.data.jpeg import decode_jpeg
+    from handmvnet_tpu_torch.data.loader import BatchLoader
+    from handmvnet_tpu_torch.ops.resize import crop_resize
+
+    batch = next(iter(BatchLoader(HO3DDataset(cfg.data, "train", device="cuda"), EVAL_BATCH, 1)))
+    frames = decode_jpeg([p for views in batch["full_jpeg"] for p in views], "cuda")
+    boxes = torch.from_numpy(batch["bboxes"].reshape(-1, 4)).cuda()
+    crops = crop_resize(frames, boxes, cfg.data.image_size)
+    n = crops.shape[0]
+    scales = cfg.data.image_size / torch.clamp(boxes[:, 2] - boxes[:, 0], min=1.0)
+    draws = augment.draw_augmentation(n, torch.Generator().manual_seed(0), "cpu")
+    ref = augment.apply_augmentation(crops.cpu(), draws, scales.cpu())
+    got = augment.apply_augmentation(crops, {k: v.cuda() for k, v in draws.items()}, scales)
+    diff = (got.cpu() - ref).abs()
+    flips = diff > AUG_ATOL
+    rest = float(diff[~flips].max())
+    flip_err = float((diff[flips] - 4.0 / 255.0).abs().max()) if flips.any() else 0.0
+    share = float(flips.float().mean())
+    print(f"augmentation card vs CPU, {n} crops of {cfg.data.image_size}^2 at fixed draws "
+          f"({int(draws['blur'].sum())} blurred, {int(draws['posterize'].sum())} posterized, "
+          f"{int(draws['occlude'].sum())} occluded): max_abs_err={rest:.3e} (tol {AUG_ATOL:.0e}) "
+          f"besides {int(flips.sum())} posterize flips (share {share:.2e}, limit "
+          f"{AUG_FLIP_SHARE:.0e}; |flip - 4/255| <= {flip_err:.1e})", flush=True)
+    if not (rest <= AUG_ATOL and flip_err <= AUG_ATOL and share <= AUG_FLIP_SHARE):
+        fail("the augmentation on the card disagrees with the CPU")
+
+    gen = torch.Generator("cuda").manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        augment.augment_batch(crops, gen, scales)
+    except RuntimeError as e:
+        fail(f"the augmentation synchronises with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    print("augmentation under sync debug mode 'error': no synchronising call", flush=True)
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        augment.augment_batch(crops, gen, scales)
+        torch.cuda.synchronize()
+    kernels = [ev for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(ev.time_range.elapsed_us() for ev in kernels) / 1e3
+    t0 = time.perf_counter()
+    for _ in range(20):
+        augment.augment_batch(crops, gen, scales)
+    host_ms = (time.perf_counter() - t0) / 20 * 1e3
+    torch.cuda.synchronize()
+    nbytes = 2 * crops.numel() * crops.element_size()
+    print(f"augmentation of {n} crops ({nbytes / 2e6:.1f} MB in): {len(kernels)} device ops, "
+          f"{device_ms:.3f} device ms (profiler), {host_ms:.3f} ms of host launches; one "
+          f"read and one write at HBM rate "
+          f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms; {card_line}", flush=True)
+
+
+def train_loader_rate(cfg, eval_loader_sps: float, step_sps: float, card_line: str) -> None:
+    """samples/s of the train loader alone (build_dataloaders: the resampled
+    stream, nvJPEG, crops, augmentation, heatmaps, on the preparer stage)
+    over THROUGHPUT_BATCHES batches after one."""
+    from handmvnet_tpu_torch.train import build_dataloaders
+
+    (loader,) = build_dataloaders(cfg, "cuda", ("train",))
+    loader.steps_per_epoch = 1
+    list(loader)  # first calls
+    loader.steps_per_epoch = THROUGHPUT_BATCHES
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for batch in loader:
+        pass
+    torch.cuda.synchronize()
+    sps = THROUGHPUT_BATCHES * EVAL_BATCH / (time.perf_counter() - t0)
+    print(f"train loader with preparation and augmentation alone, batch {EVAL_BATCH} x "
+          f"{EVAL_VIEWS} views, {THROUGHPUT_BATCHES} batches: {sps:.2f} samples/s (phase 8's "
+          f"test loader without augmentation {eval_loader_sps:.2f}; phase 6's fp32 step "
+          f"{step_sps:.2f}); {card_line}", flush=True)
+    if tuple(batch["rgb"].shape) != (EVAL_BATCH, EVAL_VIEWS, 256, 256, 3):
+        fail(f"train loader: rgb {tuple(batch['rgb'].shape)}")
+
+
+def shard_train_run(attention_ops, stem_ops, config: Path, out_dir: Path, label: str,
+                    args: list, stem_per_step: int, device_prefetch: bool = True) -> dict:
+    """train.main on the smoke shards with the counters set to 0 just before
+    and read just after: every optimizer step must launch K1 10 times and K2
+    ``stem_per_step`` times, and the run in all 10 and 2 (or 0) a step plus 5
+    and 1 (or 0) a validation forward; every logged value finite. ms a step
+    is the mean gap between CUDA events recorded after consecutive steps of
+    an epoch (the first step of each epoch, after validation, left out): the
+    device's time per step, waits for data included. ``device_prefetch``
+    False prepares each batch on the consumer's thread (this run is the one
+    caller of that setting)."""
+    import functools
+
+    from handmvnet_tpu_torch import train as train_mod
+    from handmvnet_tpu_torch.config import Config
+    from handmvnet_tpu_torch.data.loader import BatchLoader
+
+    cfg = Config.from_yaml(config)
+    spe = next((int(a) for a, b in zip(args[1:], args) if b == "--steps-per-epoch"),
+               cfg.data.split_size("train") // cfg.data.batch_size)
+    ends, per_step = [], []
+    real_step = train_mod.train_step
+
+    def timed_step(state, *a, **k):
+        before = (attention_ops.fused_attention.launches, stem_ops.stem_conv_nchw.launches)
+        out = real_step(state, *a, **k)
+        per_step.append((attention_ops.fused_attention.launches - before[0],
+                         stem_ops.stem_conv_nchw.launches - before[1]))
+        ends.append(torch.cuda.Event(enable_timing=True))
+        ends[-1].record()
+        return out
+
+    records_before = 0
+    metrics = out_dir / "metrics.jsonl"
+    if metrics.exists():
+        records_before = len(metrics.read_text().splitlines())
+    train_mod.train_step = timed_step
+    if not device_prefetch:
+        train_mod.BatchLoader = functools.partial(BatchLoader, device_prefetch=False)
+    attention_ops.fused_attention.launches = 0
+    stem_ops.stem_conv_nchw.launches = 0
+    t0 = time.perf_counter()
+    try:
+        train_mod.main(["--config", str(config), "--output-dir", str(out_dir), *args])
+    finally:
+        train_mod.train_step = real_step
+        train_mod.BatchLoader = BatchLoader
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = (attention_ops.fused_attention.launches, stem_ops.stem_conv_nchw.launches)
+    steps = len(ends)
+    records = [json.loads(line) for line in metrics.read_text().splitlines()][records_before:]
+    val_steps = max(1, cfg.data.split_size("val") // cfg.data.batch_size)
+    val_forwards = (len(records) + 1) * val_steps  # each epoch's and the best's validation
+    gaps = [a.elapsed_time(b) for e in range(0, steps, spe)
+            for a, b in zip(ends[e:e + spe], ends[e + 1:e + spe])]
+    ms = sum(gaps) / len(gaps)
+    bs = cfg.data.batch_size
+    print(f"{label}: {steps} steps of {bs} x {cfg.data.num_views} views in {len(records)} "
+          f"epochs, {secs:.2f} s in all (build, validation, checkpoints included): "
+          f"ms_per_step={ms:.3f} samples_per_s={bs / ms * 1e3:.2f} over {len(gaps)} gaps; "
+          f"launches K1={got[0]} K2={got[1]}", flush=True)
+    for r in records:
+        print(f"   epoch {r['epoch']}: train/loss={r['train/loss']:.3f} "
+              f"val_mpjpe={r['val_mpjpe']:.3f} lr={r['lr']:g}", flush=True)
+    want_step = (10, stem_per_step)
+    want = (10 * steps + 5 * val_forwards,
+            stem_per_step * steps + stem_per_step // 2 * val_forwards)
+    if any(d != want_step for d in per_step) or got != want:
+        fail(f"{label}: kernel launches {got} (per step {sorted(set(per_step))}), expected "
+             f"{want}: {want_step} a step and (5, {stem_per_step // 2}) a validation forward")
+    values = [v for r in records for v in r.values() if isinstance(v, float)]
+    if not records or not all(math.isfinite(v) for v in values):
+        fail(f"{label}: a logged value is not finite: {records}")
+    return {"ms": ms, "sps": bs / ms * 1e3, "launches": got, "steps": steps, "secs": secs,
+            "records": records}
+
+
+def shard_training_phase(attention_ops, stem_ops, train: dict, evals: dict,
+                         card_line: str) -> dict:
+    """Phase 9 (see the module docstring). Returns train.main's runs, with the
+    launches of the kernel rows."""
+    import tempfile
+
+    from handmvnet_tpu_torch.config import Config
+    from handmvnet_tpu_torch.data.synthetic import write_synthetic_ho3d_shards
+    from handmvnet_tpu_torch.models.mano import synthetic_mano_model
+    from handmvnet_tpu_torch.train import build_dataloaders
+
+    with tempfile.TemporaryDirectory(dir=REPO / "build", prefix="chip_smoke_train_") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        write_synthetic_ho3d_shards(tmp / "data", num_shards=9,
+                                    samples_per_shard=SHARD_TRAIN_SAMPLES, num_views=EVAL_VIEWS,
+                                    split="train", seed=9, consistent_geometry=True,
+                                    device="cuda")
+        mano = synthetic_mano_model()
+        np.savez(tmp / "MANO_RIGHT.npz", v_template=mano.v_template, shapedirs=mano.shapedirs,
+                 posedirs=mano.posedirs, J_regressor=mano.j_regressor,
+                 weights=mano.lbs_weights, f=mano.faces, hands_mean=mano.hands_mean)
+        n = 9 * SHARD_TRAIN_SAMPLES
+        sizes = {"train+val": n, "val": 2 * SHARD_TRAIN_SAMPLES}
+        print(f"wrote 9 HO3D-layout train shards ({n * EVAL_VIEWS} frames encoded by nvJPEG) "
+              f"in {time.perf_counter() - t0:.2f} s", flush=True)
+        configs = {d: write_eval_config(CONFIG, tmp, tmp / "data", tmp / "MANO_RIGHT.npz",
+                                        sizes, d) for d in DTYPES}
+        cfg = Config.from_yaml(configs["float32"])
+
+        augmentation_check(cfg, card_line)
+        fp32_step_sps = TRAIN_BATCH / train[torch.float32]["ms"] * 1e3
+        train_loader_rate(cfg, evals["ResNet"]["loader_sps"], fp32_step_sps, card_line)
+
+        runs = {}
+        epochs = ["--epochs", str(SHARD_EPOCHS)]
+        for name in DTYPES:
+            runs[name] = shard_train_run(attention_ops, stem_ops, configs[name], tmp / name,
+                                         f"training on shards {name}", epochs, stem_per_step=2)
+        runs["serial"] = shard_train_run(
+            attention_ops, stem_ops, configs["float32"], tmp / "serial",
+            "training on shards float32, device_prefetch=False", epochs, stem_per_step=2,
+            device_prefetch=False)
+        runs["resume"] = shard_train_run(
+            attention_ops, stem_ops, configs["float32"], tmp / "float32",
+            "training on shards float32, --resume for one more epoch",
+            ["--epochs", str(SHARD_EPOCHS + 1), "--resume"], stem_per_step=2)
+        spe = runs["float32"]["steps"] // SHARD_EPOCHS
+        if runs["resume"]["steps"] != spe or [r["epoch"] for r in runs["resume"]["records"]] \
+                != [SHARD_EPOCHS]:
+            fail(f"--resume: {runs['resume']['steps']} steps, epochs "
+                 f"{[r['epoch'] for r in runs['resume']['records']]}: expected one epoch of "
+                 f"{spe} steps, epoch {SHARD_EPOCHS}")
+        for name, dtype in DTYPES.items():
+            synth = train[dtype]["ms"]
+            print(f"training {name} on shards: {runs[name]['ms']:.3f} ms a step "
+                  f"({runs[name]['sps']:.2f} samples/s) against phase 6's synthetic step "
+                  f"{synth:.3f} ms ({TRAIN_BATCH / synth * 1e3:.2f} samples/s): ratio "
+                  f"{runs[name]['ms'] / synth:.3f}; {card_line}", flush=True)
+        print(f"training float32 on shards, preparer stage on / off: {runs['float32']['ms']:.3f}"
+              f" / {runs['serial']['ms']:.3f} ms a step ({runs['float32']['sps']:.2f} / "
+              f"{runs['serial']['sps']:.2f} samples/s)", flush=True)
+
+        (train_loader,) = build_dataloaders(cfg, "cuda", ("train",))
+        batch = next(iter(train_loader))
+        train_kernel_vs_plain(attention_ops, stem_ops, configs["float32"], batch,
+                              "an augmented shard batch")
+
+        hr_config = write_eval_config(HR_CONFIG, tmp, tmp / "data", tmp / "MANO_RIGHT.npz",
+                                      sizes, "float32")
+        runs["hr"] = shard_train_run(attention_ops, stem_ops, hr_config, tmp / "hr",
+                                     "HR training on shards float32",
+                                     ["--epochs", "1", "--steps-per-epoch", "2"], stem_per_step=0)
+    return runs
 
 
 def main() -> None:
@@ -957,7 +1237,12 @@ def main() -> None:
     evals = data_and_eval_phase(attention_ops, stem_ops, gen, card_line)
     print(f"phase 8 (data path and eval): {time.perf_counter() - t_phase:.1f} s", flush=True)
 
-    # 9. the record
+    # 9. training on shards: the train split's stream, augmentation, the preparer stage
+    t_phase = time.perf_counter()
+    shards = shard_training_phase(attention_ops, stem_ops, train, evals, card_line)
+    print(f"phase 9 (training on shards): {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # 10. the record
     def times(t: dict) -> dict:
         return {"ms": t["kernel"]["device"], "plain_ms": t["plain"]["device"],
                 "library_ms": t["library"]["device"], "eager_ms": t["kernel"]["eager"],
@@ -1027,6 +1312,28 @@ def main() -> None:
         fp32, evals["attn"][fp32], eval_calls, evals["HR"]["launches"][0],
         ("/eval_hr", "HRNet eval forward at batch 16 x 5 views: (105,105) x2 + (21,84) + "
          "(21,21) x2")))
+    # phase 9's train.main runs (steps and validation forwards) at the training
+    # microbatch's shapes: their times are the /train rows'
+    for dtype in DTYPES.values():
+        name = str(dtype).removeprefix("torch.")
+        kernels.append(attention_record(
+            dtype, train_attn[dtype], TRAIN_ATTN_CALLS, shards[name]["launches"][0],
+            ("/train_shards", "train.py on shards: microbatch forward at batch 8 (validation "
+             "at batch 16): (105,105) x2 + (21,84) + (21,21) x2"),
+            backward="PyTorch ops (ops/attention.py::attention_backward)",
+            backward_ms=attn_bwd[dtype]["ms"], backward_max_abs_err=attn_bwd[dtype]["err"]))
+        kernels.append(stem_record(
+            dtype, train_stem[dtype], shards[name]["launches"][1],
+            ("/train_shards", "train.py on shards: microbatch forward x [40, 3, 256, 256] "
+             "(validation [80, 3, 256, 256])"),
+            backward="torch.nn.grad.conv2d_weight", backward_ms=stem_bwd[dtype]["ms"],
+            backward_max_abs_err=stem_bwd[dtype]["err"]))
+    kernels.append(attention_record(
+        fp32, train_attn[fp32], TRAIN_ATTN_CALLS, shards["hr"]["launches"][0],
+        ("/hr_train_shards", "HR train.py on shards: microbatch forward at batch 8 "
+         "(validation at batch 16)"),
+        backward="PyTorch ops (ops/attention.py::attention_backward)",
+        backward_ms=attn_bwd[fp32]["ms"], backward_max_abs_err=attn_bwd[fp32]["err"]))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the card check", flush=True)
     print(card_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -122,6 +122,14 @@ int hmv_jpeg_image_size(void* decoder, const unsigned char* data, size_t length,
 // width, into out: contiguous device uint8 [n, height, width, 3] RGB. One
 // nvjpegDecodeBatched call on `stream`; returns after the stream has drained,
 // so the host buffers and the decoder state are free again when it returns.
+//
+// The stream is drained before the decode too. On an H100 (CUDA 12.8,
+// GPU_HYBRID backend), training with the decode on the training step's
+// stream while the step was still queued there (chip_smoke.py phase 9,
+// device_prefetch=False) failed a few steps in: NaN sample points, an
+// out-of-bounds gather, then CUDNN_STATUS_EXECUTION_FAILED. With the stream
+// drained first it has not failed since. Why a busy stream breaks it is not
+// known: the decode's writes to `out` do wait for the stream's queued work.
 int hmv_jpeg_decode(void* decoder, int n, const unsigned char* const* data,
                     const size_t* lengths, unsigned char* out, int height, int width,
                     void* stream) {
@@ -145,6 +153,7 @@ int hmv_jpeg_decode(void* decoder, int n, const unsigned char* const* data,
     dst[i].channel[0] = out + frame * i;
     dst[i].pitch[0] = static_cast<size_t>(width) * 3;
   }
+  HMV_CUDA(cudaStreamSynchronize(s));
   HMV_NVJPEG(nvjpegDecodeBatched(d->handle, d->state, data, lengths, dst.data(), s));
   HMV_CUDA(cudaStreamSynchronize(s));
   return static_cast<int>(cudaGetLastError());
@@ -183,12 +192,13 @@ void hmv_jpeg_encoder_destroy(void* encoder) {
 }
 
 // Encode one contiguous device uint8 [height, width, 3] RGB image into the
-// host buffer out of `capacity` bytes; *length gets the JPEG's size. Returns
-// after the stream has drained.
+// host buffer out of `capacity` bytes; *length gets the JPEG's size. Drains
+// the stream first, as the decode does, and returns after it has drained.
 int hmv_jpeg_encode(void* encoder, const unsigned char* rgb, int height, int width,
                     unsigned char* out, size_t capacity, size_t* length, void* stream) {
   Encoder* e = static_cast<Encoder*>(encoder);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  HMV_CUDA(cudaStreamSynchronize(s));
   nvjpegImage_t src;
   std::memset(&src, 0, sizeof(src));
   src.channel[0] = const_cast<unsigned char*>(rgb);

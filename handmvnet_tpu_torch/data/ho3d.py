@@ -1,5 +1,5 @@
 """HO3D-MV dataset: shard layout and label parsing (counterpart of
-handmvnet_tpu/data/ho3d.py, the val and test side).
+handmvnet_tpu/data/ho3d.py, its python reader).
 
 The reference's HO3D pipeline (src/datasets/ho3d.py):
   * shard URLs ``HO3D_mv_train-{000000..00008}.tar`` and test
@@ -9,6 +9,8 @@ The reference's HO3D pipeline (src/datasets/ho3d.py):
     xyxy box and its clamp to the 480 x 640 frame, joints and vertices in
     mm, root-relative at the root camera, visibility -> invisibility mask
     (ho3d.py:93-129);
+  * the train split's stream: shards drawn with replacement and shuffled
+    every pass, a 500-sample reservoir, seed 42 (ho3d.py:251-263);
   * split sizes: train 7718 (9087 with val), val 1369, test 2706
     (ho3d.py:275-280), corrected by the config's split_size_overrides
     (``DataConfig.split_size``; every dataset's sizes are in
@@ -16,8 +18,8 @@ The reference's HO3D pipeline (src/datasets/ho3d.py):
 
 The reader stops at frames and labels: on the CPU the frames come decoded
 (``full_rgb``), for a card as JPEG bytes (``full_jpeg``), which the loader's
-device_prepare decodes there. Crops and heatmaps are made on the device
-(data/pipeline.py).
+device_prepare decodes there. Crops, augmentation and heatmaps are made on
+the device (data/pipeline.py).
 """
 
 from __future__ import annotations
@@ -31,8 +33,6 @@ import torch
 from handmvnet_tpu_torch.config import DataConfig
 from handmvnet_tpu_torch.data.webdataset import ShardDataset, brace_expand, decode_field
 
-TRAIN_TODO = ("the train split is not ported yet: ROADMAP.md queue 1 item 1 "
-              "(augmentation, the train loader with its reservoir shuffle)")
 CACHE_TODO = ("data.cache_decoded is not ported: ROADMAP.md queue 1 item 2 (the decode "
               "cache); set cache_decoded: false")
 DENOM_TODO = ("data.decode_scale_denom > 1 is not ported: ROADMAP.md queue 1 item 3 (the "
@@ -101,7 +101,8 @@ def parse_multiview_labels(labels: dict, root_idx: int, input_res: tuple[int, in
 
 
 class MultiviewTarDataset:
-    """The samples of one split (val or test) in the reference's tar format.
+    """The samples of one split (train, val or test) in the reference's tar
+    format; the train split is the resampled, shuffled stream.
 
     ``device`` picks the frames' form: decoded by cv2 in the reader for the
     CPU (``full_rgb`` [V, H, W, 3] uint8), JPEG bytes for a card
@@ -117,9 +118,7 @@ class MultiviewTarDataset:
 
     def __init__(self, cfg: DataConfig, split: str, split_index: int = 0, split_count: int = 1,
                  device: str | torch.device = "cuda"):
-        if split == "train":
-            raise NotImplementedError(TRAIN_TODO)
-        if split not in ("val", "test"):
+        if split not in ("train", "val", "test"):
             raise ValueError(f"unknown split {split!r}")
         if cfg.cache_decoded:
             raise NotImplementedError(CACHE_TODO)
@@ -128,7 +127,10 @@ class MultiviewTarDataset:
         self.cfg = cfg
         self.split = split
         self.decoded = torch.device(device).type == "cpu"
+        train = split == "train"
         self.dataset = ShardDataset(self._split_urls(split), preprocess=self._parse,
+                                    shuffle_shards=train, resample=train,
+                                    shuffle_buffer=500 if train else 0,
                                     split_index=split_index, split_count=split_count,
                                     decode=self.decoded)
 

@@ -91,7 +91,10 @@ def _check_device(device: torch.device) -> None:
 
 def decode_jpeg(payloads: Sequence[bytes], device: str | torch.device) -> torch.Tensor:
     """JPEG byte strings, all of one size, -> uint8 [N, H, W, 3] RGB on
-    ``device``: nvJPEG's batched decode on a card, cv2 on the CPU."""
+    ``device``: nvJPEG's batched decode on a card, cv2 on the CPU. On a card
+    the decode runs on the current stream, which it drains before and after
+    (csrc/jpeg.cpp): on the training step's stream it waits for the queued
+    step, so the loader's preparer stage decodes on a stream of its own."""
     device = torch.device(device)
     _check_device(device)
     if not payloads:

@@ -1,10 +1,19 @@
 """Batched loader (counterpart of handmvnet_tpu/data/loader.py).
 
 In place of the reference's wds.WebLoader with worker processes
-(src/datasets/ho3d.py:285-311): a producer thread that reads, parses and
-collates numpy batches into a bounded prefetch queue, and ``device_prepare``
-(upload, JPEG decode on the card, crop/resize/heatmaps) on the consumer's
-thread, so that the card's work stays on the thread that runs the model.
+(src/datasets/ho3d.py:285-311), two pipeline stages on threads of their own:
+  * a producer that reads, parses and collates numpy batches into a bounded
+    prefetch queue;
+  * a preparer (``device_prefetch``, on by default, as in the JAX loader)
+    that runs ``device_prepare`` (upload, JPEG decode on the card,
+    crop/resize/augmentation/heatmaps) on batch N+1 while the caller's step
+    runs on batch N. On a card it works on a CUDA stream of its own: the
+    decode synchronises its stream (csrc/jpeg.cpp), which must not be the
+    one that queues the training step. The consumer's stream waits on an
+    event recorded after the preparation, and every tensor of the batch is
+    marked as used on the consumer's stream, so that the caching allocator
+    does not hand its memory back to the preparer's stream early.
+With ``device_prefetch=False`` the consumer's thread prepares each batch.
 An epoch is a fixed ``steps_per_epoch`` of batches over a stream that
 starts the dataset again when it runs out (the reference's ``with_epoch``,
 ho3d.py:290).
@@ -12,11 +21,13 @@ ho3d.py:290).
 
 from __future__ import annotations
 
+import contextlib
 import queue
 import threading
 from typing import Callable, Iterable, Iterator
 
 import numpy as np
+import torch
 
 _COLLATE_KEYS = (
     "full_rgb", "intrinsic", "extrinsic", "bboxes", "cropped_bboxes",
@@ -47,20 +58,27 @@ class BatchLoader:
       dataset: iterable of parsed samples (e.g. HO3DDataset).
       batch_size: samples a batch.
       steps_per_epoch: batches an epoch.
-      device_prepare: callable(batch) -> batch, run on the consumer's thread.
+      device_prepare: callable(batch) -> batch.
+      device_prefetch: run device_prepare on a preparer thread of its own,
+        ahead of the consumer; else on the consumer's thread.
+      device: where device_prepare puts the batches; on a CUDA device the
+        preparer works on a CUDA stream of its own.
 
     One consumer at a time; an epoch abandoned early (or closed) can be
     followed by another. After a pipeline error the loader is dead.
     """
 
-    PREFETCH = 2  # collated batches the producer may hold ready
+    PREFETCH = 2  # batches each stage may hold ready
 
     def __init__(self, dataset: Iterable[dict], batch_size: int, steps_per_epoch: int,
-                 device_prepare: Callable[[dict], dict] | None = None):
+                 device_prepare: Callable[[dict], dict] | None = None,
+                 device_prefetch: bool = True, device: str | torch.device = "cpu"):
         self.dataset = dataset
         self.batch_size = batch_size
         self.steps_per_epoch = steps_per_epoch
         self.device_prepare = device_prepare
+        self.device_prefetch = device_prefetch
+        self.device = torch.device(device)
         self._iter: Iterator[dict] | None = None
         self._failed = False
         # two epoch iterators at once would race on the shared sample stream;
@@ -99,22 +117,21 @@ class BatchLoader:
 
 
 class _EpochIterator:
-    """One epoch of a BatchLoader: owns its producer thread. A class, not a
-    generator, so that the producer starts at iter() and close() (or
-    __del__) winds it down and frees the loader even when the iterator is
-    dropped before its first next()."""
+    """One epoch of a BatchLoader: owns its producer and preparer threads. A
+    class, not a generator, so that the stages start at iter() and close()
+    (or __del__) winds them down and frees the loader even when the iterator
+    is dropped before its first next()."""
 
     def __init__(self, loader: BatchLoader):
         self.loader = loader
         self._closed = False
-        self._queue: queue.Queue = queue.Queue(maxsize=loader.PREFETCH)
+        collated: queue.Queue = queue.Queue(maxsize=loader.PREFETCH)
         self._stop = stop = object()
-        # set when the consumer stops early, so that the producer never
-        # stays blocked on a full queue while it holds the sample stream
+        # set when the consumer stops early, so that no stage stays blocked
+        # on a full queue (the producer holding the sample stream)
         self._cancelled = cancelled = threading.Event()
-        q = self._queue
 
-        def put(item) -> bool:
+        def put(q: queue.Queue, item) -> bool:
             while not cancelled.is_set():
                 try:
                     q.put(item, timeout=0.1)
@@ -129,16 +146,54 @@ class _EpochIterator:
                     if cancelled.is_set():
                         return
                     samples = [next(loader._iter) for _ in range(loader.batch_size)]
-                    if not put(collate(samples)):
+                    if not put(collated, collate(samples)):
                         return
             except BaseException as e:  # re-raised in the consumer
                 # a producer that died must not read as a clean, short epoch
-                put(e)
+                put(collated, e)
             finally:
-                put(stop)
+                put(collated, stop)
 
-        self._thread = threading.Thread(target=producer, daemon=True)
-        self._thread.start()
+        self._threads = [threading.Thread(target=producer, daemon=True)]
+        self._queues = [collated]
+        self._inline_prepare = loader.device_prepare
+        if loader.device_prepare is not None and loader.device_prefetch:
+            self._inline_prepare = None
+            prepared: queue.Queue = queue.Queue(maxsize=loader.PREFETCH)
+
+            def preparer():
+                # items: (batch, the event the consumer's stream waits on, or None)
+                try:
+                    stream = None
+                    if loader.device.type == "cuda":
+                        stream = torch.cuda.Stream(loader.device)
+                    with contextlib.nullcontext() if stream is None else torch.cuda.stream(stream):
+                        while not cancelled.is_set():
+                            try:
+                                item = collated.get(timeout=0.1)
+                            except queue.Empty:
+                                continue
+                            if item is stop or isinstance(item, BaseException):
+                                put(prepared, item)
+                                if item is stop:
+                                    return
+                                continue
+                            batch = loader.device_prepare(item)
+                            ready = None
+                            if stream is not None:
+                                ready = torch.cuda.Event()
+                                ready.record(stream)
+                            if not put(prepared, (batch, ready)):
+                                return
+                except BaseException as e:  # re-raised in the consumer
+                    put(prepared, e)
+                    put(prepared, stop)
+
+            self._threads.append(threading.Thread(target=preparer, daemon=True))
+            self._queues.append(prepared)
+        self._out = self._queues[-1]
+        for thread in self._threads:
+            thread.start()
 
     def __iter__(self) -> Iterator[dict]:
         return self
@@ -147,16 +202,25 @@ class _EpochIterator:
         if self._closed:
             raise StopIteration
         try:
-            item = self._queue.get()
+            item = self._out.get()
             if item is self._stop:
                 self.close()
                 raise StopIteration
             if isinstance(item, BaseException):
                 self.loader._failed = True
                 raise item
-            if self.loader.device_prepare is not None:
-                item = self.loader.device_prepare(item)
-            return item
+            if self._inline_prepare is not None:
+                return self._inline_prepare(item)
+            if self.loader.device_prepare is None:
+                return item
+            batch, ready = item
+            if ready is not None:
+                consumer = torch.cuda.current_stream(self.loader.device)
+                consumer.wait_event(ready)
+                for value in batch.values():
+                    if isinstance(value, torch.Tensor) and value.is_cuda:
+                        value.record_stream(consumer)
+            return batch
         except StopIteration:
             raise
         except BaseException:
@@ -165,20 +229,22 @@ class _EpochIterator:
             raise
 
     def close(self) -> None:
-        """Wind the producer down (it then no longer holds the sample
-        stream) and free the loader for the next epoch. Idempotent."""
+        """Wind the stages down (the producer then no longer holds the
+        sample stream) and free the loader for the next epoch. Idempotent."""
         if self._closed:
             return
         self._closed = True
         self._cancelled.set()
-        try:
-            while True:
-                self._queue.get_nowait()
-        except queue.Empty:
-            pass
-        self._thread.join(timeout=30.0)
-        if self._thread.is_alive():  # wedged in the dataset itself: stay dead
-            self.loader._failed = True
+        for q in self._queues:
+            try:
+                while True:
+                    q.get_nowait()
+            except queue.Empty:
+                pass
+        for thread in self._threads:
+            thread.join(timeout=30.0)
+            if thread.is_alive():  # wedged in the dataset or the preparation: stay dead
+                self.loader._failed = True
         self.loader._iterating.release()
 
     def __del__(self):  # a safety net for an iterator dropped unclosed

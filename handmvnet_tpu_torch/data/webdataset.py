@@ -7,9 +7,10 @@ key, e.g. ``000002187.image_0.jpg`` ... ``000002187.label.pyd``
   * brace_expand: the ``prefix-{000000..00008}.tar`` URL pattern;
   * iter_tar_samples: the grouped samples of one shard, decoded or as raw
     bytes (the card's reader leaves the JPEGs to nvJPEG);
-  * ShardDataset: samples across shards, with a reservoir shuffle and the
-    split of shards (or of samples) between readers, as the reference's val
-    and test pipelines set them through wds (ho3d.py:251-263);
+  * ShardDataset: samples across shards, with the train pipeline's
+    resampled, shuffled shard stream and reservoir shuffle, and the split of
+    shards (or of samples) between readers, as the reference's pipelines set
+    them through wds (ho3d.py:251-263);
   * write_tar_shard: shards in the same format, for tests and smoke runs.
 
 Decoding: .jpg through data/jpeg.py on the CPU (cv2, rgb8 like wds's
@@ -30,7 +31,6 @@ import numpy as np
 import torch
 
 from handmvnet_tpu_torch.data.jpeg import decode_jpeg, encode_jpeg
-
 
 
 def brace_expand(url: str) -> list[str]:
@@ -82,18 +82,24 @@ class ShardDataset:
     Args:
       urls: shard paths (already brace-expanded).
       preprocess: per-sample callable.
+      shuffle_shards: shuffle the shard order every pass.
+      resample: draw the pass's shards with replacement (the train stream,
+        reference ho3d.py:255 ``resampled=True``).
       shuffle_buffer: reservoir shuffle of samples (reference .shuffle(500)).
       split_index / split_count: this reader's slice of the shards, or of the
-        samples when readers outnumber shards.
+        samples when readers outnumber shards (never with ``resample``).
       seed: epoch-stable RNG seed.
       decode: decode each entry (``decode_field``), or yield raw bytes.
     """
 
     def __init__(self, urls: Iterable[str], preprocess: Callable[[dict], Any] | None = None,
-                 shuffle_buffer: int = 0, split_index: int = 0, split_count: int = 1,
-                 seed: int = 42, decode: bool = True):
+                 shuffle_shards: bool = False, resample: bool = False, shuffle_buffer: int = 0,
+                 split_index: int = 0, split_count: int = 1, seed: int = 42,
+                 decode: bool = True):
         self.urls = list(urls)
         self.preprocess = preprocess
+        self.shuffle_shards = shuffle_shards
+        self.resample = resample
         self.shuffle_buffer = shuffle_buffer
         self.split_index = split_index
         self.split_count = split_count
@@ -101,12 +107,28 @@ class ShardDataset:
         self.decode = decode
         self._epoch = 0
 
+    @property
+    def _sample_split(self) -> bool:
+        """More readers than shards, not resampled: split by sample ordinal,
+        so that no two readers see the same sample (decided from the counts
+        alone, so that every reader decides alike)."""
+        return not self.resample and self.split_count > max(len(self.urls), 1)
+
+    def _shards_for_epoch(self, rng: np.random.Generator) -> list[str]:
+        if self._sample_split:  # every reader walks the shards in one order
+            return list(self.urls)
+        urls = self.urls[self.split_index::self.split_count]
+        if self.resample:
+            urls = urls or self.urls  # a reader without shards of its own draws from all
+            return [str(rng.choice(urls)) for _ in range(len(urls))]
+        if self.shuffle_shards:
+            urls = list(urls)
+            rng.shuffle(urls)
+        return urls
+
     def __iter__(self) -> Iterator[Any]:
         rng = np.random.default_rng(self.seed + self._epoch * 10007 + self.split_index)
-        # more readers than shards: split by sample ordinal, so that no two
-        # readers see the same sample (decided from the counts alone, so that
-        # every reader decides alike)
-        sample_split = self.split_count > max(len(self.urls), 1)
+        sample_split = self._sample_split
         self._epoch += 1
         buffer: list[Any] = []
 
@@ -114,8 +136,7 @@ class ShardDataset:
             return self.preprocess(sample) if self.preprocess else sample
 
         ordinal = 0
-        shards = self.urls if sample_split else self.urls[self.split_index::self.split_count]
-        for shard in shards:
+        for shard in self._shards_for_epoch(rng):
             for sample in iter_tar_samples(shard, decode=self.decode):
                 if sample_split:
                     mine = ordinal % self.split_count == self.split_index

@@ -8,7 +8,7 @@ weights (``checkpoint.load_torch_checkpoint``: the port's own ``.pt``, a
 reference Lightning ``.ckpt`` or a ``.pth`` state_dict); one pass of the
 val loader, then of the test loader, over the config's shards
 (``train.build_dataloaders``: JPEG decode on the card, crops and heatmaps
-there), each scored by ``engine.evaluate`` with the vertex metrics unless
+there, on the loader's preparer thread), each scored by ``engine.evaluate`` with the vertex metrics unless
 ``--no-vertices``; ``val.json`` and ``test.json`` beside the checkpoint.
 fp32 is full fp32 (TF32 off). Runs on the card unless ``--device cpu``.
 """

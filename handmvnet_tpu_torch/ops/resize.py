@@ -10,11 +10,12 @@ upsample_bilinear2d_aa uses:
   w_j     = max(0, 1 - |(j - center + 0.5) / support|), each row normalised.
 
 ``resize_bilinear_antialias`` resizes with static weights (the heatmap
-labels). ``crop_resize_normalize`` is the reference's crop_and_pad_image +
-Resize + Normalize chain of the loader (src/datasets/ho3d.py:136-153) for a
-batch of frames: the integer crop of each view's box folds into its own
-weight matrices, built on the device, and pixels outside the frame act as
-zero padding.
+labels). ``crop_resize`` and ``mask_normalize`` are the reference's
+crop_and_pad_image + Resize, then Normalize, of the loader
+(src/datasets/ho3d.py:136-153) for a batch of frames, with the train split's
+augmentation between them: the integer crop of each view's box folds into
+its own weight matrices, built on the device, and pixels outside the frame
+act as zero padding.
 """
 
 from __future__ import annotations
@@ -79,27 +80,32 @@ def crop_resize_weights(lo_px: torch.Tensor, hi_px: torch.Tensor, in_size: int,
     return window(j - lo) / denom
 
 
-def crop_resize_normalize(images: torch.Tensor, boxes: torch.Tensor, out_size: int,
-                          visible: torch.Tensor | None = None) -> torch.Tensor:
-    """Crop (integer box, zero padding), antialiased resize and ImageNet
-    normalisation of N frames, each with its own box.
+def crop_resize(images: torch.Tensor, boxes: torch.Tensor, out_size: int) -> torch.Tensor:
+    """Crop (integer box, zero padding) and antialiased resize of N frames,
+    each with its own box: the counterpart of
+    handmvnet_tpu/ops/resize.py::crop_resize_normalize(normalize=False)
+    under vmap.
 
     images: [N, H, W, 3] uint8 (or float in [0, 255]); boxes: [N, 4] integer
-    xyxy, which may leave the frame; visible: optional [N] bool, False for
-    the black-image rule (the view becomes zeros before normalisation,
-    reference ho3d.py:138-141). Returns [N, out_size, out_size, 3] float32,
-    normalised like the reference's ToTensor + Normalize
-    (src/datasets/ho3d.py:35-40). The counterpart of
-    handmvnet_tpu/ops/resize.py::crop_resize_normalize under vmap, and of
-    the masking in handmvnet_tpu/data/pipeline.py::preprocess_views."""
+    xyxy, which may leave the frame. Returns [N, out_size, out_size, 3]
+    float32 in [0, 1]."""
     n, h, w, _ = images.shape
     img = images.to(torch.float32) / 255.0
     wy = crop_resize_weights(boxes[:, 1], boxes[:, 3], h, out_size)  # [N, S, H]
     wx = crop_resize_weights(boxes[:, 0], boxes[:, 2], w, out_size)  # [N, S, W]
     rows = torch.bmm(wy, img.reshape(n, h, w * 3)).reshape(n, out_size, w, 3)
-    out = torch.einsum("nowc,npw->nopc", rows, wx)
+    return torch.einsum("nowc,npw->nopc", rows, wx)
+
+
+def mask_normalize(crops: torch.Tensor, visible: torch.Tensor | None = None) -> torch.Tensor:
+    """The black-image rule and ImageNet normalisation of [N, S, S, 3] crops
+    in [0, 1]: with ``visible`` ([N] bool), a view whose joints are all
+    invisible becomes zeros before normalisation (reference
+    ho3d.py:138-141); then the reference's ToTensor + Normalize
+    (src/datasets/ho3d.py:35-40), as handmvnet_tpu/data/pipeline.py's
+    preprocess_views masks and normalises."""
     if visible is not None:
-        out = out * visible.reshape(n, 1, 1, 1).to(torch.float32)
-    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=out.device)
-    std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=out.device)
-    return (out - mean) / std
+        crops = crops * visible.reshape(-1, 1, 1, 1).to(torch.float32)
+    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=crops.device)
+    std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=crops.device)
+    return (crops - mean) / std

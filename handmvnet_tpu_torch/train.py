@@ -13,19 +13,21 @@ record per epoch with the LR its steps used, and after training a validation
 of the best checkpoint written to ``val.json``. fp32 is full fp32 (TF32 off);
 ``compute_dtype: bfloat16`` trains in bf16 on fp32 master weights.
 
-Batches: the training loop still takes every batch from
-``data/synthetic.synthetic_batch``, the stand-in the JAX trainer itself falls
-back to when no dataset tars are mounted: the train split (augmentation, the
-reservoir-shuffled train loader) is not ported yet. The val and test loaders
-on the config's shards are (``build_dataloaders``, which eval.py uses).
-Optimizer step s trains on seed s, and validation batch j is seed
-``VAL_SEED + j`` in every pass. An epoch has the train split's size // batch
-steps and validation the val split's;
-``--steps-per-epoch`` cuts both (smoke runs) while the LR milestones stay
-sized from the full epoch. The model starts from PyTorch's default
-initialisation; with ``backbone_pretrained`` the backbone then takes the
-ImageNet weights at ``backbone_pretrained_path`` (``pretrained.py``), before
-``--resume``, so a restored checkpoint wins over the graft.
+Data: the config's tar shards (``build_dataloaders``), as the JAX trainer
+reads them. The train split is the resampled, reservoir-shuffled stream,
+decoded, cropped and augmented on the device (the generator of the n-th
+batch a loader prepares is seeded 42 + n, JAX's PRNGKey(seed + counter)),
+with the preparation of batch N+1 on the loader's preparer thread while
+step N runs; validation reads the val split without augmentation. An epoch
+has the train split's size // batch steps, which also size the LR
+milestones; ``--steps-per-epoch`` cuts the training loop only (smoke runs).
+Dropout of optimizer step s draws from seed * 1000003 + s. ``--resume``
+restores the model, optimizer, scheduler and step; the data stream and the
+augmentation counter start again, as in the JAX trainer. The model starts
+from PyTorch's default initialisation; with ``backbone_pretrained`` the
+backbone then takes the ImageNet weights at ``backbone_pretrained_path``
+(``pretrained.py``), before ``--resume``, so a restored checkpoint wins over
+the graft.
 """
 
 from __future__ import annotations
@@ -42,12 +44,11 @@ import torch
 
 from handmvnet_tpu_torch.config import Config
 from handmvnet_tpu_torch.data.dexycb import DexYCBDataset
-from handmvnet_tpu_torch.data.ho3d import TRAIN_TODO, HO3DDataset
+from handmvnet_tpu_torch.data.ho3d import HO3DDataset
 from handmvnet_tpu_torch.data.jpeg import decode_jpeg
 from handmvnet_tpu_torch.data.loader import BatchLoader
 from handmvnet_tpu_torch.data.mvhand import MVHandDataset
 from handmvnet_tpu_torch.data.pipeline import preprocess_views
-from handmvnet_tpu_torch.data.synthetic import synthetic_batch
 from handmvnet_tpu_torch.engine import (
     CheckpointManager,
     DeviceMetricAverager,
@@ -59,14 +60,8 @@ from handmvnet_tpu_torch.engine import (
     write_results_json,
 )
 from handmvnet_tpu_torch.pretrained import load_pretrained_backbone
-from handmvnet_tpu_torch.train_step import (
-    batch_to_device,
-    build_model,
-    create_train_state,
-    train_step,
-)
+from handmvnet_tpu_torch.train_step import build_model, create_train_state, train_step
 
-VAL_SEED = 1 << 30  # validation batches' seeds start here, far from the train steps'
 DATASETS = {"ho3d": HO3DDataset, "dexycb": DexYCBDataset, "mvhand": MVHandDataset}
 # a collated batch's host-only fields, which the model, losses and metrics do not read
 HOST_ONLY = ("full_rgb", "full_jpeg", "mv_sample_id", "root_idx", "intrinsic_mat",
@@ -74,15 +69,24 @@ HOST_ONLY = ("full_rgb", "full_jpeg", "mv_sample_id", "root_idx", "intrinsic_mat
              "cropped_bboxes")
 
 
-def make_device_prepare(cfg: Config, device: str | torch.device = "cuda"):
+AUGMENT_SEED = 42  # the n-th prepared batch augments from seed AUGMENT_SEED + n
+
+
+def make_device_prepare(cfg: Config, device: str | torch.device = "cuda",
+                        augment: bool = False):
     """Collated batch -> batch on ``device``: the frames there (JPEG bytes
     decoded by nvJPEG on a card; on the CPU the reader has decoded them),
-    then ``preprocess_views`` (crops, black-image rule, heatmaps) and the
-    labels as tensors, without the host-only fields. Augmentation comes
-    with the train split."""
+    then ``preprocess_views`` (crops, augmentation with ``augment``,
+    black-image rule, heatmaps) and the labels as tensors, without the
+    host-only fields. With ``augment`` the n-th batch prepared (from 1) draws
+    from a generator on ``device`` seeded AUGMENT_SEED + n
+    (handmvnet_tpu/train.py:50-57), so one thread must call it, in order."""
     device = torch.device(device)
+    generator = torch.Generator(device) if augment else None
+    prepared = 0
 
     def prepare(batch: dict) -> dict:
+        nonlocal prepared
         if "full_jpeg" in batch:
             flat = [jpeg for views in batch["full_jpeg"] for jpeg in views]
             frames = decode_jpeg(flat, device)
@@ -92,9 +96,13 @@ def make_device_prepare(cfg: Config, device: str | torch.device = "cuda"):
         any_visible = torch.from_numpy(~np.all(batch["joints_img_mask"], axis=-1)).to(device)
         out = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
                for k, v in batch.items() if k not in HOST_ONLY}
+        if augment:
+            prepared += 1
+            generator.manual_seed(AUGMENT_SEED + prepared)
         out["rgb"], out["heatmap"] = preprocess_views(
             frames, out["bboxes"], out["joints_crop_img"], any_visible,
-            image_size=cfg.data.image_size, heatmap_size=cfg.data.heatmap_size)
+            image_size=cfg.data.image_size, heatmap_size=cfg.data.heatmap_size,
+            augment=augment, generator=generator)
         return out
 
     return prepare
@@ -104,20 +112,19 @@ def build_dataloaders(cfg: Config, device: str | torch.device = "cuda",
                       splits: tuple[str, ...] = ("val", "test")) -> tuple[BatchLoader, ...]:
     """A loader for each split asked for, over the config's shards, in that
     order: epochs of the split's size // batch batches (at least one), each
-    batch prepared on ``device``. The train split raises until augmentation
-    is ported."""
-    if "train" in splits:
-        raise NotImplementedError(TRAIN_TODO)
+    batch prepared on ``device`` by the loader's preparer stage, the train
+    split's with augmentation when the config asks for it."""
     ds_cls = DATASETS[cfg.data.name]
     bs = cfg.data.batch_size
     loaders = []
     for split in splits:
         ds = ds_cls(cfg.data, split, device=device)
+        augment = split == "train" and cfg.data.augment
         loaders.append(BatchLoader(ds, batch_size=bs,
                                    steps_per_epoch=max(1, ds.num_samples() // bs),
-                                   device_prepare=make_device_prepare(cfg, device)))
+                                   device_prepare=make_device_prepare(cfg, device, augment),
+                                   device=device))
     return tuple(loaders)
-
 
 
 def accumulation(cfg: Config) -> int:
@@ -126,20 +133,12 @@ def accumulation(cfg: Config) -> int:
     return cfg.train.accumulate_batch or (2 if cfg.data.batch_size < 64 else 1)
 
 
-def synthetic_batches(cfg: Config, seeds, device):
-    """The config's batch shape from ``synthetic_batch``, one per seed, on ``device``."""
-    for seed in seeds:
-        yield batch_to_device(synthetic_batch(
-            cfg.data.batch_size, cfg.data.num_views, cfg.data.image_size,
-            cfg.data.heatmap_size, seed=seed), device)
-
-
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--config", required=True)
     parser.add_argument("--epochs", type=int, default=0, help="override the config's epochs")
     parser.add_argument("--steps-per-epoch", type=int, default=0,
-                        help="cut each epoch and each validation to N batches (smoke runs)")
+                        help="cut each training epoch to N steps (smoke runs)")
     parser.add_argument("--output-dir", default="")
     parser.add_argument("--resume", action="store_true",
                         help="resume from <output-dir>/checkpoints/last.pt")
@@ -165,12 +164,11 @@ def main(argv=None) -> None:
     seed = cfg.train.seed
     accum = accumulation(cfg)
     bs = cfg.data.batch_size
-    sched_steps = max(1, cfg.data.split_size("train") // bs)  # the LR milestones' epoch
-    steps_per_epoch = args.steps_per_epoch or sched_steps
-    val_steps = max(1, cfg.data.split_size("val") // bs)
+    train_loader, val_loader = build_dataloaders(cfg, device, ("train", "val"))
+    sched_steps = len(train_loader)  # the LR milestones' epoch
     if args.steps_per_epoch:
-        val_steps = min(val_steps, args.steps_per_epoch)
-    val_seeds = range(VAL_SEED, VAL_SEED + val_steps)
+        train_loader.steps_per_epoch = args.steps_per_epoch
+    steps_per_epoch = len(train_loader)
 
     model = build_model(cfg, str(device), seed)
     load_pretrained_backbone(model, cfg)
@@ -188,8 +186,7 @@ def main(argv=None) -> None:
     generator = torch.Generator(device)
 
     def validate():
-        return evaluate(state.model, synthetic_batches(cfg, val_seeds, device), cfg,
-                        mode="val", vertices_fn=vertices_fn)
+        return evaluate(state.model, val_loader, cfg, mode="val", vertices_fn=vertices_fn)
 
     preempted = []
     previous_handler = signal.signal(signal.SIGTERM, lambda signum, frame: preempted.append(signum))
@@ -204,8 +201,7 @@ def main(argv=None) -> None:
             t0 = time.time()
             lr = state.optimizer.param_groups[0]["lr"]  # what this epoch's steps use
             avg = DeviceMetricAverager()
-            end = (epoch + 1) * steps_per_epoch
-            for batch in synthetic_batches(cfg, range(state.step, end), device):
+            for batch in train_loader:
                 generator.manual_seed(seed * 1_000_003 + state.step)
                 avg.update(train_step(state, cfg, batch, generator, accum))
                 if preempted:

@@ -454,3 +454,64 @@ def test_eval_batch_kernel_path_matches_plain_path(card, tmp_path, monkeypatch):
         assert out_k[key].device.type == "cuda" and torch.isfinite(out_k[key]).all(), key
         err = float((out_k[key] - out_p[key]).abs().max())
         assert err <= tol, (key, err)
+
+
+# The train split's data path on the card: augmentation against the CPU at
+# the same draws and without a host sync, and the loader's preparer stage
+# (its own CUDA stream) against preparation on the consumer's thread.
+
+def test_augmentation_on_card_matches_cpu_without_syncing(card):
+    """40 crops of 256^2 at magnifications 0.5-3.5 and fixed draws (drawn on
+    the CPU, then moved): within 2e-4 of the CPU, chip_smoke.py's AUG_ATOL
+    (the box blur's cumsum rounding 4 S eps / w at S = 256, w >= 2, tripled
+    by the 2x sharpening), but for posterize flips of 4/255 (to that limit)
+    on at most 1e-4 of the elements (tests/test_torch_augment.py's chain
+    rule); then augment_batch from a generator on the card under the sync
+    debug mode "error"."""
+    from handmvnet_tpu_torch.data import augment
+
+    gen = torch.Generator().manual_seed(0)
+    images = torch.rand(40, 256, 256, 3, generator=gen)
+    scales = torch.rand(40, generator=gen) * 3.0 + 0.5
+    draws = augment.draw_augmentation(40, gen, "cpu")
+    ref = augment.apply_augmentation(images, draws, scales)
+    got = augment.apply_augmentation(images.to(card), {k: v.to(card) for k, v in draws.items()},
+                                     scales.to(card))
+    diff = (got.cpu() - ref).abs()
+    flips = diff > 2e-4
+    assert float(diff[~flips].max()) <= 2e-4
+    assert bool(((diff[flips] - 4.0 / 255.0).abs() <= 2e-4).all())
+    assert float(flips.float().mean()) <= 1e-4
+    card_gen = torch.Generator(card).manual_seed(1)
+    x = images.to(card)
+    scales = scales.to(card)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = augment.augment_batch(x, card_gen, scales)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert out.device.type == "cuda" and out.shape == x.shape
+
+
+def test_train_loader_preparer_stage_on_card(card, tmp_path):
+    """The train loader on card-written shards, augmentation on: its batches
+    from the preparer stage (a CUDA stream of its own) equal, bit for bit,
+    those prepared on the consumer's thread and stream."""
+    import dataclasses
+
+    from handmvnet_tpu_torch.train import build_dataloaders
+
+    cfg = _shard_config(tmp_path, views=2, image=64)
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(
+        cfg.data, split_size_overrides={"train+val": 8, "val": 2}))
+    runs = []
+    for prefetch in (True, False):
+        (loader,) = build_dataloaders(cfg, card, ("train",))
+        loader.device_prefetch = prefetch
+        runs.append([{k: v.clone() for k, v in b.items()} for b in loader])
+    assert len(runs[0]) == 4
+    for got, want in zip(*runs):
+        assert got["rgb"].device.type == "cuda"
+        for key, value in want.items():
+            assert torch.equal(got[key], value), key

@@ -12,6 +12,7 @@ measured on this CPU beside each.
 import dataclasses
 import filecmp
 import lzma
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -119,20 +120,29 @@ def test_iter_tar_samples_matches_jax(shard_dir, family):
     assert ours[0]["image_0.jpg"][:2] == b"\xff\xd8"  # raw JPEG bytes
 
 
-SPLITS = [  # (shards, split_index, split_count, shuffle_buffer)
+SPLITS = [  # (shards, split_index, split_count, shuffle_buffer[, shuffle_shards, resample])
     (9, 0, 1, 0), (9, 1, 3, 0), (9, 2, 4, 0),
     (2, 1, 3, 0), (2, 2, 5, 0),  # the sample-ordinal split
-    (9, 0, 1, 5), (9, 1, 2, 7), (2, 0, 3, 3)]
+    (9, 0, 1, 5), (9, 1, 2, 7), (2, 0, 3, 3),
+    (9, 0, 1, 0, True, False), (9, 2, 4, 0, True, False), (9, 1, 2, 7, True, False),
+    (7, 0, 1, 0, False, True), (7, 0, 1, 500, True, True), (9, 1, 2, 7, True, True),
+    (2, 2, 5, 0, False, True),  # resampled: a reader without shards draws from all
+    (2, 0, 3, 3, True, True)]
 
 
-@pytest.mark.parametrize("case", SPLITS, ids=lambda c: "-".join(map(str, c)))
+def _split_id(case) -> str:
+    flags = [name for name, on in zip(("shuffle", "resample"), case[4:]) if on]
+    return "-".join(map(str, case[:4])) + "".join(f"-{f}" for f in flags)
+
+
+@pytest.mark.parametrize("case", SPLITS, ids=_split_id)
 def test_shard_dataset_matches_jax(shard_dir, case):
-    """The same keys in the same order over two epochs (the reservoir
-    shuffle draws from the same numpy stream)."""
-    n, index, count, buffer = case
+    """The same keys in the same order over two epochs (the shard draws and
+    the reservoir shuffle draw from the same numpy stream)."""
+    n, index, count, buffer, shuffle, resample = (*case, False, False)[:6]
     urls = sorted(str(p) for p in shard_dir.glob("HO3D_mv_train-*.tar"))[:n]
     kw = dict(preprocess=lambda s: s["__key__"], shuffle_buffer=buffer, split_index=index,
-              split_count=count)
+              split_count=count, shuffle_shards=shuffle, resample=resample)
     ours = webdataset.ShardDataset(urls, decode=False, **kw)
     ref = jax_wds.ShardDataset(urls, **kw)
     for _ in range(2):
@@ -181,6 +191,27 @@ def test_dataset_samples_match_jax(shard_dir, split):
         frames = jpeg.decode_jpeg(c.pop("full_jpeg"), "cpu").numpy()
         np.testing.assert_array_equal(frames, r["full_rgb"])
         _assert_same(c, {k: v for k, v in r.items() if k != "full_rgb"})
+
+
+@pytest.mark.parametrize("add_val", [False, True], ids=["train", "train+val"])
+def test_train_split_order_matches_jax(shard_dir, add_val):
+    """The train split, JAX's python reader against the port's card form
+    (JPEG bytes) over two passes: the same samples (mv_sample_id) in the same
+    order, from the resampled, shuffled shard stream and the 500-sample
+    reservoir; the CPU form's first pass too, with equal samples."""
+    cfg, jcfg = _data_cfgs(shard_dir, add_val_to_train=add_val)
+    ref_ds = jax_ho3d.HO3DDataset(jcfg, "train", use_native=False)
+    ours_ds = ho3d.HO3DDataset(cfg, "train", device="cuda")  # no card needed to read
+    assert ours_ds.dataset.urls == ref_ds.dataset.urls
+    assert len(ours_ds.dataset.urls) == (9 if add_val else 7)
+    passes = []
+    for _ in range(2):
+        ref = [s["mv_sample_id"] for s in ref_ds]
+        assert [s["mv_sample_id"] for s in ours_ds] == ref
+        passes.append(ref)
+    assert passes[0] != passes[1] and len(set(passes[0])) > 1  # a new draw every pass
+    ref = list(jax_ho3d.HO3DDataset(jcfg, "train", use_native=False))
+    _assert_same(list(ho3d.HO3DDataset(cfg, "train", device="cpu")), ref)
 
 
 # ------------------------------------------------------------------- loader --
@@ -235,6 +266,72 @@ def test_loader_dead_after_prepare_error(shard_dir):
         list(ours)
     with pytest.raises(RuntimeError, match="dead"):
         iter(ours)
+
+
+def _tagging_prepare(calls: list | None = None):
+    """A device_prepare that tags each batch with the thread it ran on and
+    its call count (the threads also go to ``calls``)."""
+    calls = [] if calls is None else calls
+
+    def prepare(batch):
+        calls.append(threading.get_ident())
+        return {**batch, "n": len(calls), "thread": calls[-1]}
+
+    return prepare
+
+
+@pytest.mark.parametrize("device_prefetch", [True, False], ids=["preparer", "inline"])
+def test_preparer_stage_keeps_order(shard_dir, device_prefetch):
+    """With the preparer stage (on by default) or without it, the prepared
+    batches are the JAX loader's with the same device_prepare, in order, over
+    two epochs; the preparer stage runs it on a thread of its own, the
+    inline path on the consumer's."""
+    ours, _ = _loaders(shard_dir, 3, device_prepare=_tagging_prepare(),
+                       device_prefetch=device_prefetch)
+    cfg, jcfg = _data_cfgs(shard_dir)
+    ref = jax_loader.BatchLoader(jax_ho3d.HO3DDataset(jcfg, "test", use_native=False), 4, 3,
+                                 device_prepare=_tagging_prepare())
+    for epoch in range(2):
+        got, want = list(ours), list(ref)
+        assert [b["n"] for b in got] == [b["n"] for b in want] == [3 * epoch + i for i in (1, 2, 3)]
+        _assert_same([{k: v for k, v in b.items() if k != "thread"} for b in got],
+                     [{k: v for k, v in b.items() if k != "thread"} for b in want])
+        on_consumer = {b["thread"] == threading.get_ident() for b in got}
+        assert on_consumer == {not device_prefetch}
+
+
+@pytest.mark.parametrize("device_prefetch", [True, False], ids=["preparer", "inline"])
+def test_preparer_stage_error_early_exit_and_single_consumer(shard_dir, device_prefetch):
+    """The preparer stage keeps the loader's rules: one consumer at a time;
+    an epoch dropped after one batch can be followed by full epochs, whose
+    batches continue the sample stream; an error in device_prepare reaches
+    the consumer and leaves the loader dead."""
+    calls = []
+    ours, _ = _loaders(shard_dir, 3, device_prepare=_tagging_prepare(calls),
+                       device_prefetch=device_prefetch)
+    epoch = iter(ours)
+    first = next(epoch)
+    with pytest.raises(RuntimeError, match="single-consumer"):
+        iter(ours)
+    epoch.close()
+    assert first["n"] == 1 and first["full_rgb"].shape == (4, 5, 480, 640, 3)
+    assert len(list(ours)) == 3
+    assert len(calls) >= 4  # prefetched batches included
+
+    def fail_on_second(batch, seen=[]):
+        seen.append(batch)
+        if len(seen) == 2:
+            raise ValueError("prepare exploded")
+        return batch
+
+    bad, _ = _loaders(shard_dir, 3, device_prepare=fail_on_second,
+                      device_prefetch=device_prefetch)
+    batches = iter(bad)
+    assert next(batches)["joints_cam"].shape == (4, 21, 3)
+    with pytest.raises(ValueError, match="prepare exploded"):
+        next(batches)
+    with pytest.raises(RuntimeError, match="dead"):
+        iter(bad)
 
 
 def test_loader_dead_after_reader_error(tmp_path):
@@ -324,15 +421,16 @@ def test_crop_resize_weights_match_jax():
 
 @pytest.mark.parametrize("masked", [False, True])
 def test_crop_resize_normalize_matches_jax(masked):
-    """fp32, each box against JAX's function under vmap (with ``masked``,
+    """fp32, crop_resize then mask_normalize, each box against JAX's
+    crop_resize_normalize under vmap (with ``masked``,
     every other view black, as JAX's preprocess_views masks before it
     normalises): atol 1e-5 (values up to 2.64); measured 8.0e-7."""
     rng = np.random.default_rng(11)
     images = rng.integers(0, 256, size=(len(BOXES), 48, 64, 3), dtype=np.uint8)
     boxes = np.asarray(BOXES, np.float32)
     visible = np.arange(len(BOXES)) % 2 == 0 if masked else np.ones(len(BOXES), bool)
-    ours = resize.crop_resize_normalize(torch.from_numpy(images), torch.from_numpy(boxes), 32,
-                                        torch.from_numpy(visible) if masked else None).numpy()
+    crops = resize.crop_resize(torch.from_numpy(images), torch.from_numpy(boxes), 32)
+    ours = resize.mask_normalize(crops, torch.from_numpy(visible) if masked else None).numpy()
     raw = jax.vmap(lambda i, b: jax_resize.crop_resize_normalize(i, b, 32, normalize=False))(
         jnp.asarray(images), jnp.asarray(boxes))
     mean = np.asarray(jax_resize.IMAGENET_MEAN, np.float32)
@@ -415,19 +513,17 @@ def test_make_device_prepare_matches_jax(shard_dir, collated):
 # ---------------------------------------------------------------- refusals --
 
 def test_unported_options_raise_naming_their_roadmap_item(shard_dir):
-    x = torch.zeros(1, 1, 8, 8, 3, dtype=torch.uint8)
-    with pytest.raises(NotImplementedError, match="queue 1 item 1"):
-        preprocess_views(x, torch.zeros(1, 1, 4), torch.zeros(1, 1, 21, 2),
-                         torch.ones(1, 1, dtype=torch.bool), augment=True)
+    """The decode cache and the downscaled decode raise, on every split; the
+    train split and augmentation are ported."""
     cfg, _ = _data_cfgs(shard_dir)
-    with pytest.raises(NotImplementedError, match="queue 1 item 1"):
-        ho3d.HO3DDataset(cfg, "train", device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 1"):
-        train.build_dataloaders(Config(data=cfg), "cpu", splits=("train", "val"))
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        ho3d.HO3DDataset(dataclasses.replace(cfg, cache_decoded=True), "val", device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        ho3d.HO3DDataset(dataclasses.replace(cfg, decode_scale_denom=2), "val", device="cpu")
+    for split in ("train", "val", "test"):
+        with pytest.raises(NotImplementedError, match="queue 1 item 2"):
+            ho3d.HO3DDataset(dataclasses.replace(cfg, cache_decoded=True), split, device="cpu")
+        with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+            ho3d.HO3DDataset(dataclasses.replace(cfg, decode_scale_denom=2), split, device="cpu")
+    assert ho3d.HO3DDataset(cfg, "train", device="cpu").dataset.resample
+    train_loader, _ = train.build_dataloaders(Config(data=cfg), "cpu", splits=("train", "val"))
+    assert len(train_loader) == cfg.split_size("train") // cfg.batch_size
 
 
 def test_build_dataloaders_val_and_test(shard_dir):
@@ -438,3 +534,23 @@ def test_build_dataloaders_val_and_test(shard_dir):
     assert batch["rgb"].shape == (2, 5, 256, 256, 3) and batch["rgb"].dtype == torch.float32
     assert batch["heatmap"].shape == (2, 5, 21, 32, 32)
     assert not set(batch) & set(train.HOST_ONLY)
+
+
+@pytest.mark.parametrize("augment", [True, False], ids=["augment", "no-augment"])
+def test_build_dataloaders_train_split(shard_dir, augment):
+    """The train loader: the split's size // batch steps, and each batch the
+    train stream's samples prepared as make_device_prepare prepares them,
+    with augmentation as the config asks (the n-th batch from seed 42 + n)."""
+    cfg = Config(data=_data_cfgs(shard_dir, batch_size=2, augment=augment,
+                                 split_size_overrides={"train": 14, "val": 4})[0])
+    (loader_,) = train.build_dataloaders(cfg, "cpu", splits=("train",))
+    assert len(loader_) == 7 and loader_.device_prefetch
+    raw = loader.BatchLoader(ho3d.HO3DDataset(cfg.data, "train", device="cpu"), 2, 3)
+    prepare = train.make_device_prepare(cfg, "cpu", augment=augment)
+    for got, batch in zip(loader_, raw):
+        want = prepare(batch)
+        assert set(got) == set(want)
+        for key, value in want.items():
+            assert torch.equal(got[key], value), key
+    plain = train.make_device_prepare(cfg, "cpu")(next(iter(raw)))
+    assert plain["rgb"].shape == (2, 5, 256, 256, 3)

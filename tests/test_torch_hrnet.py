@@ -67,7 +67,7 @@ from handmvnet_tpu_torch.models.backbones.resnet import BasicBlock
 from handmvnet_tpu_torch.ops.attention import fused_attention
 from handmvnet_tpu_torch.ops.stem import stem_conv_nchw
 from handmvnet_tpu_torch.train_step import batch_to_device, forward_loss
-from torch_parity import random_flax_variables, rel_max_err
+from torch_parity import random_flax_variables, rel_max_err, write_train_shards
 
 ROOT = Path(__file__).resolve().parents[1]
 RELEASE = ROOT / "configs" / "release"
@@ -384,10 +384,12 @@ def test_eval_fps_protocol_runs_hr_config_on_cpu():
 
 
 def test_train_driver_runs_hr_config(tmp_path, capsys):
-    """train.py on the HR release config (cut to 64^2, 2 views, batch 2):
-    one epoch of two steps, warning that the ImageNet graft has no path."""
+    """train.py on the HR release config (cut to 64^2, 2 views, batch 2) on
+    test-size shards: one epoch of two steps, warning that the ImageNet graft
+    has no path."""
     raw = yaml.safe_load(CONFIG.read_text())
-    raw["data"].update(image_size=IMAGE, heatmap_size=HEATMAP, batch_size=BATCH)
+    raw["data"].update(image_size=IMAGE, heatmap_size=HEATMAP, batch_size=BATCH,
+                       **write_train_shards(tmp_path / "shards"))
     raw["model"]["selected_views"] = [0, 1]
     config = tmp_path / "hr.yaml"
     config.write_text(yaml.safe_dump(raw, sort_keys=False))

@@ -30,6 +30,7 @@ from handmvnet_tpu_torch.pretrained import (
     load_state_dict_file,
     resolve_pretrained_path,
 )
+from torch_parity import write_train_shards
 
 ROOT = Path(__file__).resolve().parents[1]
 RESNET_CONFIG = ROOT / "configs" / "release" / "HO3D_HandMvNet.yaml"
@@ -180,9 +181,9 @@ def test_resolve_pretrained_path_finds_file_and_directory(tmp_path, config, name
 # ---------------------------------------------------------------- train.py
 
 
-def _tiny_config(tmp_path: Path, weights: Path) -> str:
+def _tiny_config(tmp_path: Path, weights: Path, shard_data: dict) -> str:
     raw = yaml.safe_load(RESNET_CONFIG.read_text())
-    raw["data"].update(image_size=32, heatmap_size=4, batch_size=2)
+    raw["data"].update(image_size=32, heatmap_size=4, batch_size=2, **shard_data)
     raw["model"].update(selected_views=[0, 1], backbone_pretrained=True,
                         backbone_pretrained_path=str(weights))
     path = tmp_path / f"tiny_{weights.stem}.yaml"
@@ -198,7 +199,8 @@ def test_train_grafts_before_resume(tmp_path, capsys):
     torch.save({k: torch.zeros_like(v) for k, v in imagenet.items()}, tmp_path / "zeros.pth")
     out = tmp_path / "run"
     common = ["--steps-per-epoch", "1", "--output-dir", str(out), "--device", "cpu"]
-    train_driver.main(["--config", _tiny_config(tmp_path, tmp_path / "imagenet.pth"),
+    shard_data = write_train_shards(tmp_path / "shards")
+    train_driver.main(["--config", _tiny_config(tmp_path, tmp_path / "imagenet.pth", shard_data),
                        "--epochs", "1", *common])
     assert "loaded pretrained resnet backbone" in capsys.readouterr().out
     first = torch.load(out / "checkpoints" / "last.pt", weights_only=True)["model"]
@@ -208,7 +210,7 @@ def test_train_grafts_before_resume(tmp_path, capsys):
         assert float((first[key] - imagenet[key.removeprefix("backbone.")]).abs().max()) < 3 * lr
 
     # resume with a config whose graft would zero the backbone
-    train_driver.main(["--config", _tiny_config(tmp_path, tmp_path / "zeros.pth"),
+    train_driver.main(["--config", _tiny_config(tmp_path, tmp_path / "zeros.pth", shard_data),
                        "--epochs", "2", "--resume", *common])
     second = torch.load(out / "checkpoints" / "last.pt", weights_only=True)
     assert second["step"] == 2

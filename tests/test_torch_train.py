@@ -38,6 +38,7 @@ Tolerances, each with the largest error measured on this CPU:
     tests/test_torch_model.py.
 """
 
+import copy
 import dataclasses
 import json
 from functools import partial
@@ -95,7 +96,7 @@ from handmvnet_tpu_torch.train_step import (
     optimizer_step,
     train_step,
 )
-from torch_parity import random_flax_variables, rel_max_err
+from torch_parity import random_flax_variables, rel_max_err, write_train_shards
 
 ROOT = Path(__file__).resolve().parents[1]
 CONFIG = ROOT / "configs" / "release" / "HO3D_HandMvNet.yaml"
@@ -597,9 +598,14 @@ def test_checkpoint_manager_keeps_best_and_last(tmp_path):
     assert again.restore_best(state).step == 3
 
 
-def _tiny_config(tmp_path, **train):
+@pytest.fixture(scope="module")
+def shard_data(tmp_path_factory):
+    return write_train_shards(tmp_path_factory.mktemp("shards"))
+
+
+def _tiny_config(tmp_path, shard_data, **train):
     raw = yaml.safe_load(CONFIG.read_text())
-    raw["data"].update(image_size=IMAGE, heatmap_size=HEATMAP, batch_size=2)
+    raw["data"].update(image_size=IMAGE, heatmap_size=HEATMAP, batch_size=2, **shard_data)
     raw["model"]["selected_views"] = list(range(VIEWS))
     raw["train"].update(train)
     path = tmp_path / "tiny.yaml"
@@ -612,30 +618,80 @@ def _run_driver(config, out, *flags):
                        "--device", "cpu", *flags])
 
 
-def test_train_driver_runs_and_resumes_bit_for_bit(tmp_path):
-    """1 epoch x 2 steps writes metrics.jsonl and val.json; resuming that
-    run for a second epoch gives the same weights and optimizer state, bit
-    for bit, as 2 epochs in one run (dropout on, accumulation 2)."""
-    config = _tiny_config(tmp_path)
+def _records(out) -> list[dict]:
+    return [json.loads(line) for line in (out / "metrics.jsonl").read_text().splitlines()]
+
+
+def test_train_driver_runs_and_resumes_bit_for_bit(tmp_path, shard_data, monkeypatch):
+    """1 epoch x 2 steps on the shards (augmented train stream, dropout on,
+    accumulation 2) writes metrics.jsonl, checkpoints and val.json;
+    ``--resume`` for a second epoch starts from exactly what last.pt holds
+    (step, weights, optimizer state, scheduler) and goes on to step 4. The
+    data stream and the augmentation counter start again on resume, as in
+    the JAX trainer, so the resumed run is not a straight 2-epoch run."""
+    config = _tiny_config(tmp_path, shard_data)
     _run_driver(config, tmp_path / "a", "--epochs", "1", "--eval-first")
-    records = [json.loads(line) for line in (tmp_path / "a" / "metrics.jsonl").read_text().splitlines()]
+    records = _records(tmp_path / "a")
     assert [r["epoch"] for r in records] == [-1, 0]
     assert records[1]["lr"] == 1e-4 and np.isfinite(records[1]["train/loss"])
     assert {"train/g2d_loss", "val_mpjpe", "val_pa_mpjpe"} <= set(records[1])
     (val,) = json.loads((tmp_path / "a" / "val.json").read_text())
     assert np.isfinite(val["val_mpjpe"])
+    saved = torch.load(tmp_path / "a" / "checkpoints" / "last.pt", weights_only=True)
+    assert saved["step"] == 2
 
+    first_step = []
+    real_step = train_driver.train_step
+
+    def spy(state, *args, **kwargs):
+        if not first_step:
+            first_step.append(copy.deepcopy((state.step, state.model.state_dict(),
+                                             state.optimizer.state_dict(),
+                                             state.scheduler.state_dict())))
+        return real_step(state, *args, **kwargs)
+
+    monkeypatch.setattr(train_driver, "train_step", spy)
     _run_driver(config, tmp_path / "a", "--epochs", "2", "--resume")
-    _run_driver(config, tmp_path / "b", "--epochs", "2")
-    resumed, straight = (torch.load(tmp_path / d / "checkpoints" / "last.pt", weights_only=True)
-                         for d in ("a", "b"))
-    assert resumed["step"] == straight["step"] == 4
-    for key, value in straight["model"].items():
-        assert torch.equal(resumed["model"][key], value), key
-    for idx, st in straight["optimizer"]["state"].items():
+    step, weights, optimizer, scheduler = first_step[0]
+    assert step == saved["step"] == 2
+    assert weights.keys() == saved["model"].keys()
+    for key, value in saved["model"].items():
+        assert torch.equal(weights[key], value), key
+    for idx, st in saved["optimizer"]["state"].items():
+        for key in ("step", "exp_avg", "exp_avg_sq"):
+            assert torch.equal(torch.as_tensor(optimizer["state"][idx][key]),
+                               torch.as_tensor(st[key])), (idx, key)
+    assert scheduler == saved["scheduler"]
+    resumed = torch.load(tmp_path / "a" / "checkpoints" / "last.pt", weights_only=True)
+    assert resumed["step"] == 4 and resumed["scheduler"]["last_epoch"] == 4
+    assert [r["epoch"] for r in _records(tmp_path / "a")] == [-1, 0, 1]
+
+
+def test_train_straight_runs_agree_bit_for_bit(tmp_path, shard_data):
+    """Two straight runs from one seed agree bit for bit: the sample stream,
+    the augmentation draws and dropout (1 epoch x 2 steps, accumulation 2);
+    without augmentation the losses differ."""
+    config = _tiny_config(tmp_path, shard_data)
+    for run in ("b", "c"):
+        _run_driver(config, tmp_path / run, "--epochs", "1")
+    b, c = (torch.load(tmp_path / r / "checkpoints" / "last.pt", weights_only=True)
+            for r in ("b", "c"))
+    assert b["step"] == c["step"] == 2
+    for key, value in b["model"].items():
+        assert torch.equal(c["model"][key], value), key
+    for idx, st in b["optimizer"]["state"].items():
         for key in ("exp_avg", "exp_avg_sq"):
-            assert torch.equal(resumed["optimizer"]["state"][idx][key], st[key]), (idx, key)
-    assert resumed["scheduler"]["last_epoch"] == straight["scheduler"]["last_epoch"] == 4
+            assert torch.equal(c["optimizer"]["state"][idx][key], st[key]), (idx, key)
+    (rb,), (rc,) = _records(tmp_path / "b"), _records(tmp_path / "c")
+    assert {k: v for k, v in rb.items() if k != "time_s"} == \
+        {k: v for k, v in rc.items() if k != "time_s"}
+    raw = yaml.safe_load(Path(config).read_text())
+    raw["data"]["augment"] = False
+    plain = tmp_path / "plain.yaml"
+    plain.write_text(yaml.safe_dump(raw, sort_keys=False))
+    _run_driver(str(plain), tmp_path / "d", "--epochs", "1")
+    (rd,) = _records(tmp_path / "d")
+    assert rd["train/loss"] != rb["train/loss"]
 
 
 def test_train_step_decreases_the_loss_on_one_batch():

@@ -38,3 +38,17 @@ def random_flax_variables(module, seed: int, *args, **kwargs) -> dict:
 def rel_max_err(got: np.ndarray, ref: np.ndarray) -> float:
     """max |got - ref| / max |ref|."""
     return float(np.max(np.abs(got - ref)) / np.max(np.abs(ref)))
+
+
+def write_train_shards(out_dir) -> dict:
+    """HO3D's release shard layout at test size, written by the port on the
+    CPU: 9 train shards of 2 samples (the val split reads the first and the
+    last, the train split the 7 between, or all 9 with add_val_to_train),
+    5 views of 480 x 640 with a coherent hand. Returns the config's data
+    fields that point at them and size their epochs."""
+    from handmvnet_tpu_torch.data.synthetic import write_synthetic_ho3d_shards
+
+    write_synthetic_ho3d_shards(out_dir, num_shards=9, samples_per_shard=2, split="train",
+                                consistent_geometry=True, device="cpu")
+    return {"dataset_dir": str(out_dir),
+            "split_size_overrides": {"train": 14, "train+val": 18, "val": 4}}
