@@ -84,9 +84,24 @@ Phases; any failure exits nonzero and prints no result:
      phase 6's synthetic step; one fp32 step of the kernel path against the
      plain path on an augmented shard batch (phase 6's limits); train.main
      on the HR config, one epoch of 2 steps (K1 10 a step, K2 none);
- 10. a {"kernels": [...]} line (the HR rows carry K1's launches on the HR
+ 10. data-parallel training (train_step's process-group path, parallel/):
+     (a) two processes on the one card over gloo (NCCL refuses two ranks on
+     one device), each on its half of a synthetic batch of 2 x 16 x 5 views
+     at accumulation 2 from rank 0's broadcast weights (seed 1, head scaled,
+     dropout 0), 1 warmup + 3 optimizer steps: K1 10 and K2 2 launches a step
+     on each rank, one all-reduce a step, finite losses, parameters and
+     BatchNorm statistics bitwise equal across ranks at the end, and the
+     first step's all-reduced loss terms (rel 1e-4) and gradient norm (rel
+     1e-3) against one process accumulating the same 4 microbatches; ms a
+     step and the all-reduce's ms (a shared-card figure, not a scaling
+     figure); (b) train.main through the env:// rendezvous at world size 1
+     on NCCL, one epoch on phase 9's shards (phase 9's launch and finiteness
+     checks), its ms a step against phase 9's one-process fp32 step and the
+     all-reduce's ms;
+ 11. a {"kernels": [...]} line (the HR rows carry K1's launches on the HR
      paths, the /eval rows the launches of phase 8's eval runs, the
-     /train_shards rows phase 9's), then the {"ok": true, ...} line last.
+     /train_shards rows phase 9's, the /train_dp rows phase 10's), then the
+     {"ok": true, ...} line last.
 Each phase prints its seconds.
 
 fp32 means fp32 here: TF32 is switched off for matmuls and cuDNN convs.
@@ -156,6 +171,9 @@ AUG_ATOL, AUG_FLIP_SHARE = 2e-4, 1e-4
 # ~400 mm, where the fp32 stage differs from float64 by up to ~5e-3 mm and the
 # card's kernels round in other orders than the CPU's
 MESH_ATOL_MM = 2e-2
+# data-parallel training (phase 10): two ranks of the release recipe on the one
+# card, each batch 16 x 5 views at accumulation 2, 1 warmup + 3 optimizer steps
+DP_RANKS, DP_WARMUP, DP_STEPS = 2, 1, 3
 
 
 def fail(msg: str) -> None:
@@ -1045,79 +1063,289 @@ def shard_train_run(attention_ops, stem_ops, config: Path, out_dir: Path, label:
 
 
 def shard_training_phase(attention_ops, stem_ops, train: dict, evals: dict,
-                         card_line: str) -> dict:
-    """Phase 9 (see the module docstring). Returns train.main's runs, with the
-    launches of the kernel rows."""
-    import tempfile
-
+                         card_line: str, tmp: Path) -> tuple[dict, dict]:
+    """Phase 9 (see the module docstring), in the directory ``tmp``. Returns
+    train.main's runs, with the launches of the kernel rows, and the configs
+    of the shards it wrote there, by dtype."""
     from handmvnet_tpu_torch.config import Config
     from handmvnet_tpu_torch.data.synthetic import write_synthetic_ho3d_shards
     from handmvnet_tpu_torch.models.mano import synthetic_mano_model
     from handmvnet_tpu_torch.train import build_dataloaders
 
-    with tempfile.TemporaryDirectory(dir=REPO / "build", prefix="chip_smoke_train_") as tmp:
-        tmp = Path(tmp)
+    t0 = time.perf_counter()
+    write_synthetic_ho3d_shards(tmp / "data", num_shards=9,
+                                samples_per_shard=SHARD_TRAIN_SAMPLES, num_views=EVAL_VIEWS,
+                                split="train", seed=9, consistent_geometry=True,
+                                device="cuda")
+    mano = synthetic_mano_model()
+    np.savez(tmp / "MANO_RIGHT.npz", v_template=mano.v_template, shapedirs=mano.shapedirs,
+             posedirs=mano.posedirs, J_regressor=mano.j_regressor,
+             weights=mano.lbs_weights, f=mano.faces, hands_mean=mano.hands_mean)
+    n = 9 * SHARD_TRAIN_SAMPLES
+    sizes = {"train+val": n, "val": 2 * SHARD_TRAIN_SAMPLES}
+    print(f"wrote 9 HO3D-layout train shards ({n * EVAL_VIEWS} frames encoded by nvJPEG) "
+          f"in {time.perf_counter() - t0:.2f} s", flush=True)
+    configs = {d: write_eval_config(CONFIG, tmp, tmp / "data", tmp / "MANO_RIGHT.npz",
+                                    sizes, d) for d in DTYPES}
+    cfg = Config.from_yaml(configs["float32"])
+
+    augmentation_check(cfg, card_line)
+    fp32_step_sps = TRAIN_BATCH / train[torch.float32]["ms"] * 1e3
+    train_loader_rate(cfg, evals["ResNet"]["loader_sps"], fp32_step_sps, card_line)
+
+    runs = {}
+    epochs = ["--epochs", str(SHARD_EPOCHS)]
+    for name in DTYPES:
+        runs[name] = shard_train_run(attention_ops, stem_ops, configs[name], tmp / name,
+                                     f"training on shards {name}", epochs, stem_per_step=2)
+    runs["serial"] = shard_train_run(
+        attention_ops, stem_ops, configs["float32"], tmp / "serial",
+        "training on shards float32, device_prefetch=False", epochs, stem_per_step=2,
+        device_prefetch=False)
+    runs["resume"] = shard_train_run(
+        attention_ops, stem_ops, configs["float32"], tmp / "float32",
+        "training on shards float32, --resume for one more epoch",
+        ["--epochs", str(SHARD_EPOCHS + 1), "--resume"], stem_per_step=2)
+    spe = runs["float32"]["steps"] // SHARD_EPOCHS
+    if runs["resume"]["steps"] != spe or [r["epoch"] for r in runs["resume"]["records"]] \
+            != [SHARD_EPOCHS]:
+        fail(f"--resume: {runs['resume']['steps']} steps, epochs "
+             f"{[r['epoch'] for r in runs['resume']['records']]}: expected one epoch of "
+             f"{spe} steps, epoch {SHARD_EPOCHS}")
+    for name, dtype in DTYPES.items():
+        synth = train[dtype]["ms"]
+        print(f"training {name} on shards: {runs[name]['ms']:.3f} ms a step "
+              f"({runs[name]['sps']:.2f} samples/s) against phase 6's synthetic step "
+              f"{synth:.3f} ms ({TRAIN_BATCH / synth * 1e3:.2f} samples/s): ratio "
+              f"{runs[name]['ms'] / synth:.3f}; {card_line}", flush=True)
+    print(f"training float32 on shards, preparer stage on / off: {runs['float32']['ms']:.3f}"
+          f" / {runs['serial']['ms']:.3f} ms a step ({runs['float32']['sps']:.2f} / "
+          f"{runs['serial']['sps']:.2f} samples/s)", flush=True)
+
+    (train_loader,) = build_dataloaders(cfg, "cuda", ("train",))
+    batch = next(iter(train_loader))
+    train_kernel_vs_plain(attention_ops, stem_ops, configs["float32"], batch,
+                          "an augmented shard batch")
+
+    hr_config = write_eval_config(HR_CONFIG, tmp, tmp / "data", tmp / "MANO_RIGHT.npz",
+                                  sizes, "float32")
+    runs["hr"] = shard_train_run(attention_ops, stem_ops, hr_config, tmp / "hr",
+                                 "HR training on shards float32",
+                                 ["--epochs", "1", "--steps-per-epoch", "2"], stem_per_step=0)
+    return runs, configs
+
+
+@contextlib.contextmanager
+def timed_all_reduce():
+    """train_step's all-reduce with CUDA events recorded around each call;
+    yields the list of (start, end, bytes) of the calls."""
+    from handmvnet_tpu_torch import train_step as step_mod
+
+    calls, real = [], step_mod.all_reduce_mean_
+
+    def timed(flat, group):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(flat, group)
+        end.record()
+        calls.append((start, end, flat.numel() * flat.element_size()))
+        return out
+
+    step_mod.all_reduce_mean_ = timed
+    try:
+        yield calls
+    finally:
+        step_mod.all_reduce_mean_ = real
+
+
+def dp_rank(out: str) -> None:
+    """One rank of phase 10 (a), started by parallel.spawn_local_ranks: gloo
+    on cuda:0, which both ranks share (the port gives each rank a card of its
+    own; NCCL refuses two ranks on one device). From seed 1 with the heatmap
+    head scaled by 1e-3 and dropout 0 (train_kernel_vs_plain's model), rank
+    0's weights broadcast, DP_WARMUP + DP_STEPS optimizer steps of
+    train_step's process-group path on this rank's half of a
+    DP_RANKS x TRAIN_BATCH synthetic batch, every view at the root camera's
+    pose. Writes to ``<out>/rank<r>.pt`` its launch counts a step, its loss
+    terms and gradient norm a step, ms a step over the timed steps, the
+    all-reduce's ms (CUDA events around each call in the step) and its final
+    state_dict."""
+    import torch.distributed as dist
+
+    from handmvnet_tpu_torch import train_step as step_mod
+    from handmvnet_tpu_torch.ops import attention as attention_ops
+    from handmvnet_tpu_torch.ops import stem as stem_ops
+    from handmvnet_tpu_torch.parallel import broadcast_module_
+    from handmvnet_tpu_torch.parallel.mesh import TIMEOUT
+    from handmvnet_tpu_torch.train import accumulation
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method="env://", timeout=TIMEOUT)
+    group = dist.group.WORLD
+    rank, world = dist.get_rank(group), dist.get_world_size(group)
+    try:
+        cfg = train_config("float32")
+        model = dp_model(cfg)
+        broadcast_module_(model, group)
+        state = step_mod.create_train_state(model, cfg, 1000)
+        batch = {k: v[rank * TRAIN_BATCH:(rank + 1) * TRAIN_BATCH]
+                 for k, v in dp_batch(cfg).items()}
+        accum = accumulation(cfg, world)
+        attention_ops.fused_attention.launches = 0
+        stem_ops.stem_conv_nchw.launches = 0
+        launches, losses, norms = [], [], []
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with timed_all_reduce() as reduce_ms:
+            for i in range(DP_WARMUP + DP_STEPS):
+                if i == DP_WARMUP:
+                    start.record()
+                before = (attention_ops.fused_attention.launches,
+                          stem_ops.stem_conv_nchw.launches)
+                losses.append(step_mod.accumulate_grads(state, cfg, batch, None, accum, group))
+                norms.append(step_mod.optimizer_step(state, cfg))
+                launches.append((attention_ops.fused_attention.launches - before[0],
+                                 stem_ops.stem_conv_nchw.launches - before[1]))
+            end.record()
+            end.synchronize()
+        torch.save({"launches": launches,
+                    "losses": [{k: float(v) for k, v in lo.items()} for lo in losses],
+                    "norms": [float(n) for n in norms],
+                    "ms": start.elapsed_time(end) / DP_STEPS,
+                    "reduce_ms": [a.elapsed_time(b) for a, b, _ in reduce_ms],
+                    "reduce_bytes": reduce_ms[0][2],
+                    "state": {k: v.cpu() for k, v in state.model.state_dict().items()}},
+                   Path(out) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_model(cfg):
+    """train_kernel_vs_plain's judged model: seed 1, dropout 0, the heatmap
+    head's last conv scaled by 1e-3."""
+    from handmvnet_tpu_torch.train_step import build_model
+
+    model = build_model(cfg, "cuda", seed=1, dropout=0.0)
+    with torch.no_grad():
+        for p in model.pose_net[-1].parameters():
+            p.mul_(1e-3)
+    return model
+
+
+def dp_batch(cfg) -> dict:
+    """Phase 6's synthetic data at DP_RANKS x TRAIN_BATCH samples, every view
+    at the root camera's pose, on the card."""
+    from handmvnet_tpu_torch.data.synthetic import synthetic_batch
+    from handmvnet_tpu_torch.train_step import batch_to_device
+
+    data = synthetic_batch(DP_RANKS * TRAIN_BATCH, TRAIN_VIEWS, cfg.data.image_size,
+                           cfg.data.heatmap_size, seed=0)
+    data["extrinsic"][:] = np.eye(4, dtype=np.float32)
+    return batch_to_device(data, "cuda")
+
+
+def dp_shared_card(card_line: str) -> dict:
+    """Phase 10 (a): DP_RANKS processes on the one card over gloo (dp_rank),
+    then one process accumulating the same 2 x 2 microbatches from the same
+    weights: the first step's all-reduced loss terms (rel 1e-4) and gradient
+    norm (rel 1e-3) against it, as in phase 6; K1 10 and K2 2 launches every
+    step on each rank, finite losses; after the steps parameters and
+    BatchNorm statistics bitwise equal across ranks."""
+    import tempfile
+
+    from handmvnet_tpu_torch.parallel import spawn_local_ranks
+    from handmvnet_tpu_torch.train_step import accumulate_grads, create_train_state, optimizer_step
+
+    with tempfile.TemporaryDirectory(dir=REPO / "build", prefix="chip_smoke_dp_") as tmp:
         t0 = time.perf_counter()
-        write_synthetic_ho3d_shards(tmp / "data", num_shards=9,
-                                    samples_per_shard=SHARD_TRAIN_SAMPLES, num_views=EVAL_VIEWS,
-                                    split="train", seed=9, consistent_geometry=True,
-                                    device="cuda")
-        mano = synthetic_mano_model()
-        np.savez(tmp / "MANO_RIGHT.npz", v_template=mano.v_template, shapedirs=mano.shapedirs,
-                 posedirs=mano.posedirs, J_regressor=mano.j_regressor,
-                 weights=mano.lbs_weights, f=mano.faces, hands_mean=mano.hands_mean)
-        n = 9 * SHARD_TRAIN_SAMPLES
-        sizes = {"train+val": n, "val": 2 * SHARD_TRAIN_SAMPLES}
-        print(f"wrote 9 HO3D-layout train shards ({n * EVAL_VIEWS} frames encoded by nvJPEG) "
-              f"in {time.perf_counter() - t0:.2f} s", flush=True)
-        configs = {d: write_eval_config(CONFIG, tmp, tmp / "data", tmp / "MANO_RIGHT.npz",
-                                        sizes, d) for d in DTYPES}
-        cfg = Config.from_yaml(configs["float32"])
+        spawn_local_ranks(dp_rank, (tmp,), DP_RANKS)
+        secs = time.perf_counter() - t0
+        ranks = [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=True) for r in range(DP_RANKS)]
+    label = f"data-parallel training fp32, {DP_RANKS} ranks on one card over gloo"
+    steps = DP_WARMUP + DP_STEPS
+    for r, seen in enumerate(ranks):
+        reduce = seen["reduce_ms"]
+        print(f"{label}, rank {r}: batch {TRAIN_BATCH} x {TRAIN_VIEWS} views a rank, accumulation "
+              f"2: ms_per_step={seen['ms']:.3f} over {DP_STEPS} steps after {DP_WARMUP} "
+              f"(shared-card figure, not a scaling figure); all-reduce of "
+              f"{seen['reduce_bytes'] / 1e6:.1f} MB (gradients, loss terms, BatchNorm "
+              f"statistics): {[round(t, 3) for t in reduce]} ms; launches a step "
+              f"{seen['launches']}; loss by step {[round(lo['loss'], 3) for lo in seen['losses']]}"
+              f"; {card_line}", flush=True)
+        if any(n != (10, 2) for n in seen["launches"]) or len(seen["launches"]) != steps:
+            fail(f"{label}: rank {r} launches {seen['launches']}, expected (10, 2) in each of "
+                 f"{steps} steps")
+        if not all(math.isfinite(v) for lo in seen["losses"] for v in lo.values()):
+            fail(f"{label}: rank {r}'s losses are not finite: {seen['losses']}")
+        if len(reduce) != steps:
+            fail(f"{label}: rank {r} made {len(reduce)} all-reduces in {steps} steps, expected 1 "
+                 "a step")
+    first, second = (seen["state"] for seen in ranks)
+    unequal = [k for k in first if not torch.equal(first[k], second[k])]
+    if unequal or first.keys() != second.keys():
+        fail(f"{label}: the ranks' parameters or statistics differ after {steps} steps: "
+             f"{unequal[:5]}")
+    print(f"{label}: after {steps} steps all {len(first)} parameters and buffers bitwise equal "
+          f"across ranks; {secs:.1f} s in all (process start included)", flush=True)
 
-        augmentation_check(cfg, card_line)
-        fp32_step_sps = TRAIN_BATCH / train[torch.float32]["ms"] * 1e3
-        train_loader_rate(cfg, evals["ResNet"]["loader_sps"], fp32_step_sps, card_line)
+    cfg = train_config("float32")
+    state = create_train_state(dp_model(cfg), cfg, 1000)
+    losses = {k: float(v) for k, v in accumulate_grads(
+        state, cfg, dp_batch(cfg), None, 2 * DP_RANKS).items()}
+    norm = float(optimizer_step(state, cfg))
+    got, got_norm = ranks[0]["losses"][0], ranks[0]["norms"][0]
+    bad = []
+    for key, ref in losses.items():
+        rel = abs(got[key] - ref) / abs(ref)
+        print(f"{label}, first step against one process accumulating the same "
+              f"{2 * DP_RANKS} microbatches, {key}: {got[key]:.6f} vs {ref:.6f} rel={rel:.3e} "
+              "tol=1e-4", flush=True)
+        if not rel <= 1e-4:
+            bad.append(f"{key} rel {rel}")
+    rel = abs(got_norm - norm) / norm
+    print(f"{label}, first step's all-reduced gradient norm: {got_norm:.6e} vs {norm:.6e} "
+          f"rel={rel:.3e} tol=1e-3", flush=True)
+    if not rel <= 1e-3:
+        bad.append(f"gradient norm rel {rel}")
+    if bad:
+        fail(f"{label}: the all-reduced step disagrees with one process: {bad}")
+    return {"launches": [seen["launches"] for seen in ranks],
+            "ms": [seen["ms"] for seen in ranks],
+            "reduce_ms": [seen["reduce_ms"] for seen in ranks], "secs": secs}
 
-        runs = {}
-        epochs = ["--epochs", str(SHARD_EPOCHS)]
-        for name in DTYPES:
-            runs[name] = shard_train_run(attention_ops, stem_ops, configs[name], tmp / name,
-                                         f"training on shards {name}", epochs, stem_per_step=2)
-        runs["serial"] = shard_train_run(
-            attention_ops, stem_ops, configs["float32"], tmp / "serial",
-            "training on shards float32, device_prefetch=False", epochs, stem_per_step=2,
-            device_prefetch=False)
-        runs["resume"] = shard_train_run(
-            attention_ops, stem_ops, configs["float32"], tmp / "float32",
-            "training on shards float32, --resume for one more epoch",
-            ["--epochs", str(SHARD_EPOCHS + 1), "--resume"], stem_per_step=2)
-        spe = runs["float32"]["steps"] // SHARD_EPOCHS
-        if runs["resume"]["steps"] != spe or [r["epoch"] for r in runs["resume"]["records"]] \
-                != [SHARD_EPOCHS]:
-            fail(f"--resume: {runs['resume']['steps']} steps, epochs "
-                 f"{[r['epoch'] for r in runs['resume']['records']]}: expected one epoch of "
-                 f"{spe} steps, epoch {SHARD_EPOCHS}")
-        for name, dtype in DTYPES.items():
-            synth = train[dtype]["ms"]
-            print(f"training {name} on shards: {runs[name]['ms']:.3f} ms a step "
-                  f"({runs[name]['sps']:.2f} samples/s) against phase 6's synthetic step "
-                  f"{synth:.3f} ms ({TRAIN_BATCH / synth * 1e3:.2f} samples/s): ratio "
-                  f"{runs[name]['ms'] / synth:.3f}; {card_line}", flush=True)
-        print(f"training float32 on shards, preparer stage on / off: {runs['float32']['ms']:.3f}"
-              f" / {runs['serial']['ms']:.3f} ms a step ({runs['float32']['sps']:.2f} / "
-              f"{runs['serial']['sps']:.2f} samples/s)", flush=True)
 
-        (train_loader,) = build_dataloaders(cfg, "cuda", ("train",))
-        batch = next(iter(train_loader))
-        train_kernel_vs_plain(attention_ops, stem_ops, configs["float32"], batch,
-                              "an augmented shard batch")
+def dp_train_main(attention_ops, stem_ops, config: Path, out_dir: Path, one_process: dict,
+                  card_line: str) -> dict:
+    """Phase 10 (b): train.main through the env:// rendezvous at world size 1
+    on NCCL, one epoch on phase 9's shards (shard_train_run's launch and
+    finiteness checks), the all-reduce timed with CUDA events around each
+    call; ms a step against phase 9's one-process fp32 step."""
+    import os
 
-        hr_config = write_eval_config(HR_CONFIG, tmp, tmp / "data", tmp / "MANO_RIGHT.npz",
-                                      sizes, "float32")
-        runs["hr"] = shard_train_run(attention_ops, stem_ops, hr_config, tmp / "hr",
-                                     "HR training on shards float32",
-                                     ["--epochs", "1", "--steps-per-epoch", "2"], stem_per_step=0)
-    return runs
+    from handmvnet_tpu_torch.parallel.mesh import free_port
+
+    env = {"RANK": "0", "LOCAL_RANK": "0", "WORLD_SIZE": "1", "LOCAL_WORLD_SIZE": "1",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port())}
+    os.environ.update(env)
+    try:
+        with timed_all_reduce() as reduce_ms:
+            run = shard_train_run(attention_ops, stem_ops, config, out_dir,
+                                  "training on shards float32, world size 1 on NCCL (env://)",
+                                  ["--epochs", "1"], stem_per_step=2)
+    finally:
+        for key in env:
+            del os.environ[key]
+    torch.cuda.synchronize()
+    times = [a.elapsed_time(b) for a, b, _ in reduce_ms]
+    if len(times) != run["steps"]:
+        fail(f"world size 1: {len(times)} all-reduces in {run['steps']} steps, expected 1 a step")
+    print(f"training on shards float32, world size 1 on NCCL: {run['ms']:.3f} ms a step against "
+          f"phase 9's one-process step {one_process['ms']:.3f} ms: ratio "
+          f"{run['ms'] / one_process['ms']:.4f}; the all-reduce (gradients, loss terms, "
+          f"BatchNorm statistics) {sum(times) / len(times):.4f} ms mean over {len(times)} "
+          f"steps (min {min(times):.4f}); {card_line}", flush=True)
+    return {**run, "reduce_ms": times}
 
 
 def main() -> None:
@@ -1237,12 +1465,25 @@ def main() -> None:
     evals = data_and_eval_phase(attention_ops, stem_ops, gen, card_line)
     print(f"phase 8 (data path and eval): {time.perf_counter() - t_phase:.1f} s", flush=True)
 
-    # 9. training on shards: the train split's stream, augmentation, the preparer stage
-    t_phase = time.perf_counter()
-    shards = shard_training_phase(attention_ops, stem_ops, train, evals, card_line)
-    print(f"phase 9 (training on shards): {time.perf_counter() - t_phase:.1f} s", flush=True)
+    import tempfile
 
-    # 10. the record
+    with tempfile.TemporaryDirectory(dir=REPO / "build", prefix="chip_smoke_train_") as tmp:
+        # 9. training on shards: the train split's stream, augmentation, the preparer stage
+        t_phase = time.perf_counter()
+        shards, shard_configs = shard_training_phase(attention_ops, stem_ops, train, evals,
+                                                     card_line, Path(tmp))
+        print(f"phase 9 (training on shards): {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+        # 10. data-parallel training: two ranks sharing the card, then train.py on NCCL
+        t_phase = time.perf_counter()
+        torch.cuda.empty_cache()
+        dp = dp_shared_card(card_line)
+        dp_nccl = dp_train_main(attention_ops, stem_ops, shard_configs["float32"],
+                                Path(tmp) / "dp_nccl", shards["float32"], card_line)
+        print(f"phase 10 (data-parallel training): {time.perf_counter() - t_phase:.1f} s",
+              flush=True)
+
+    # 11. the record
     def times(t: dict) -> dict:
         return {"ms": t["kernel"]["device"], "plain_ms": t["plain"]["device"],
                 "library_ms": t["library"]["device"], "eager_ms": t["kernel"]["eager"],
@@ -1334,6 +1575,23 @@ def main() -> None:
          "(validation at batch 16)"),
         backward="PyTorch ops (ops/attention.py::attention_backward)",
         backward_ms=attn_bwd[fp32]["ms"], backward_max_abs_err=attn_bwd[fp32]["err"]))
+    # phase 10's runs, at the training microbatch's shapes: their times are the /train rows'
+    dp_runs = {
+        "/train_dp": (tuple(map(sum, zip(*dp["launches"][0]))),
+                      "rank 0 of 2 sharing the card over gloo, 4 steps (rank 1 as many)"),
+        "/train_dp_nccl": (dp_nccl["launches"], "train.py at world size 1 on NCCL, 1 epoch "
+                           "(validation at batch 16)")}
+    for label, ((k1, k2), what) in dp_runs.items():
+        kernels.append(attention_record(
+            fp32, train_attn[fp32], TRAIN_ATTN_CALLS, k1,
+            (label, f"{what}: microbatch forward at batch 8: (105,105) x2 + (21,84) + (21,21) "
+             "x2"),
+            backward="PyTorch ops (ops/attention.py::attention_backward)",
+            backward_ms=attn_bwd[fp32]["ms"], backward_max_abs_err=attn_bwd[fp32]["err"]))
+        kernels.append(stem_record(
+            fp32, train_stem[fp32], k2, (label, f"{what}: microbatch forward x [40, 3, 256, 256]"),
+            backward="torch.nn.grad.conv2d_weight", backward_ms=stem_bwd[fp32]["ms"],
+            backward_max_abs_err=stem_bwd[fp32]["err"]))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the card check", flush=True)
     print(card_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -3,6 +3,14 @@ the reference's per-batch metrics as one device computation, the labels in
 meters, the MANO vertex map, a metric averager that keeps its sums on the
 device, the JSONL logger, the best-on-val_mpjpe + last checkpoint manager
 and the evaluation pass. TensorBoard logging is not ported yet.
+
+Over the ranks of a process group (parallel/) every rank evaluates its own
+batches and all of them get the metrics of the union of the ranks' batches,
+which is what the JAX package computes on its global batch (engine.py:303-313
+over sharded arrays): each metric is a mean over samples of a per-sample
+term (invisible joints are zeroed, not dropped), so the ranks' sample-weighted
+sums and sample counts, added up, give the union's means. Files are written
+by rank 0 alone.
 """
 
 from __future__ import annotations
@@ -13,10 +21,12 @@ from typing import Any, Callable, Dict, Iterable, Mapping
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from handmvnet_tpu_torch import metrics as M
 from handmvnet_tpu_torch.config import Config
 from handmvnet_tpu_torch.ops.geometry import mask_joints
+from handmvnet_tpu_torch.parallel.mesh import barrier, is_main
 from handmvnet_tpu_torch.train_step import eval_step
 
 
@@ -69,14 +79,15 @@ def pose_metrics_device(
     return result
 
 
-def labels_in_meters(batch: Mapping[str, np.ndarray], device: str = "cuda") -> Dict[str, Any]:
+def labels_in_meters(batch: Mapping[str, np.ndarray], device: str = "cuda",
+                     dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
     """The batch with joints_cam, root_joint and (if present) vertices, all
-    in mm, as float32 tensors in meters on ``device``; other entries as they
-    were."""
+    in mm, as ``dtype`` tensors in meters on ``device``; other entries as
+    they were."""
     labels = dict(batch)
     keys = ("joints_cam", "root_joint") + (("vertices",) if "vertices" in batch else ())
     for key in keys:
-        labels[key] = torch.as_tensor(batch[key], dtype=torch.float32, device=device) / 1000.0
+        labels[key] = torch.as_tensor(batch[key], dtype=dtype, device=device) / 1000.0
     return labels
 
 
@@ -98,11 +109,14 @@ def make_vertices_fn(cfg: Config, device: str = "cuda") -> Callable | None:
 class DeviceMetricAverager:
     """Weighted running mean of metrics whose sums stay on the device: no
     host read per update, one in ``result()``. Values are tensors (scalars
-    or vectors such as PCK curves, averaged elementwise)."""
+    or vectors such as PCK curves, averaged elementwise). With ``group``,
+    ``result()`` adds up the sums and counts of every rank (each must have
+    updated the same keys), so that every rank gets the same means."""
 
-    def __init__(self) -> None:
+    def __init__(self, group: dist.ProcessGroup | None = None) -> None:
         self._sums: Dict[str, torch.Tensor] = {}
         self._count = 0.0
+        self.group = group
 
     def update(self, metrics: Mapping[str, torch.Tensor], weight: float = 1.0) -> None:
         """weight: the batch's sample count, so that uneven batches do not
@@ -115,10 +129,15 @@ class DeviceMetricAverager:
     def result(self) -> Dict[str, Any]:
         if not self._sums:
             return {}
-        flat = torch.cat([v.reshape(-1) for v in self._sums.values()]).cpu().numpy()
+        flat = torch.cat([v.reshape(-1) for v in self._sums.values()])
+        if self.group is not None:
+            flat = torch.cat([flat, flat.new_tensor([self._count])])
+            dist.all_reduce(flat, group=self.group)
+        flat = flat.cpu().numpy()
+        count = flat[-1] if self.group is not None else self._count
         out, i = {}, 0
         for k, v in self._sums.items():
-            avg = flat[i:i + v.numel()].reshape(v.shape) / self._count
+            avg = flat[i:i + v.numel()].reshape(v.shape) / count
             i += v.numel()
             out[k] = avg.tolist() if avg.ndim else float(avg)
         return out
@@ -166,11 +185,18 @@ class CheckpointManager:
     """``last.pt`` after every epoch, and the best on val_mpjpe under the
     reference's name ``epoch={epoch}-step={step}-val_mpjpe={val:.3f}.pt``
     (only the best is kept). ``best.json`` records it, so that a resumed run
-    does not demote the best of the run before."""
+    does not demote the best of the run before.
 
-    def __init__(self, out_dir: str | Path):
+    With ``group`` every rank calls each method, with the same values (the
+    ranks' states and metrics are equal): rank 0 writes, and a barrier
+    after each save lets every rank read what it wrote."""
+
+    def __init__(self, out_dir: str | Path, group: dist.ProcessGroup | None = None):
         self.out_dir = Path(out_dir)
-        self.out_dir.mkdir(parents=True, exist_ok=True)
+        self.group = group
+        self.writes = is_main(group)
+        if self.writes:
+            self.out_dir.mkdir(parents=True, exist_ok=True)
         self.best_val = float("inf")
         self.best_path: Path | None = None
         self._meta_path = self.out_dir / "best.json"
@@ -184,18 +210,24 @@ class CheckpointManager:
     def last_path(self) -> Path:
         return self.out_dir / "last.pt"
 
+    def save_last(self, state) -> None:
+        if self.writes:
+            save_checkpoint(self.last_path, state)
+        barrier(self.group)
+
     def save(self, state, epoch: int, val_mpjpe: float) -> None:
-        save_checkpoint(self.last_path, state)
         if val_mpjpe < self.best_val:
             prev = self.best_path
             self.best_val = val_mpjpe
             self.best_path = self.out_dir / (
                 f"epoch={epoch}-step={state.step}-val_mpjpe={val_mpjpe:.3f}.pt")
-            save_checkpoint(self.best_path, state)
-            self._meta_path.write_text(json.dumps(
-                {"best_val": self.best_val, "best_path": str(self.best_path)}))
-            if prev is not None and prev != self.best_path:
-                prev.unlink(missing_ok=True)
+            if self.writes:
+                save_checkpoint(self.best_path, state)
+                self._meta_path.write_text(json.dumps(
+                    {"best_val": self.best_val, "best_path": str(self.best_path)}))
+                if prev is not None and prev != self.best_path:
+                    prev.unlink(missing_ok=True)
+        self.save_last(state)
 
     def restore_best(self, state):
         """``state`` loaded from the best checkpoint (``last.pt`` if none)."""
@@ -206,15 +238,18 @@ EVAL_LABELS = ("joints_crop_img", "joints_cam", "root_joint", "vertices", "joint
 
 
 def evaluate(model, batches: Iterable[Mapping[str, torch.Tensor]], cfg: Config,
-             mode: str = "val", vertices_fn: Callable | None = None) -> Dict[str, Any]:
+             mode: str = "val", vertices_fn: Callable | None = None,
+             group: dist.ProcessGroup | None = None) -> Dict[str, Any]:
     """One evaluation pass: the eval-mode forward and ``pose_metrics_device``
     per batch (labels in mm, as the batch holds them), averaged over the
-    samples with one host read at the end. Keys are prefixed ``{mode}_``."""
-    avg = DeviceMetricAverager()
+    samples with one host read at the end; with ``group``, over the samples
+    of every rank's batches (each rank passes as many batches). Keys are
+    prefixed ``{mode}_``."""
+    avg = DeviceMetricAverager(group)
     for batch in batches:
         out = eval_step(model, batch)
         labels = labels_in_meters({k: batch[k] for k in EVAL_LABELS if k in batch},
-                                  out["joints_cam"].device)
+                                  out["joints_cam"].device, out["joints_cam"].dtype)
         metrics = pose_metrics_device(out, labels, cfg.auc_thresholds,
                                       root_relative=cfg.train.root_relative,
                                       vertices_fn=vertices_fn)

@@ -1,11 +1,11 @@
 """Training driver:
 ``python -m handmvnet_tpu_torch.train --config configs/release/HO3D_HandMvNet.yaml``
 ``[--epochs N] [--steps-per-epoch N] [--output-dir DIR] [--resume] [--eval-first]``
-``[--device cuda]``
+``[--device cuda] [--num-devices N]``
 
-The counterpart of handmvnet_tpu/train.py on one device: seed 42 (the
-config's), the reference's gradient accumulation (the config's
-``accumulate_batch``, else 2 when the batch is under 64), AdamW with
+The counterpart of handmvnet_tpu/train.py: seed 42 (the config's), the
+reference's gradient accumulation (the config's ``accumulate_batch``, else 2
+when the batch is under 64 and there are fewer than 3 ranks), AdamW with
 gradient clipping and MultiStepLR sized from the dataset's full epoch,
 checkpoints of the best val_mpjpe and of the last epoch (``--resume``
 continues from ``last``), a checkpoint of ``last`` on SIGTERM, one JSONL
@@ -28,6 +28,25 @@ from PyTorch's default initialisation; with ``backbone_pretrained`` the
 backbone then takes the ImageNet weights at ``backbone_pretrained_path``
 (``pretrained.py``), before ``--resume``, so a restored checkpoint wins over
 the graft.
+
+Over N devices it trains data-parallel, one process (rank) a device: under
+``torchrun --nproc-per-node N -m handmvnet_tpu_torch.train ...`` (several
+hosts through torchrun's rendezvous), or with ``--num-devices N``, which
+starts N ranks on this host itself. Each rank takes the config's
+``batch_size`` from its own slice of the shards (``split_index=rank``,
+``split_count=N``), so an optimizer step averages N x batch_size samples:
+the reference's DDP semantics (``gpus: 2`` in the release configs) and the
+JAX trainer's over several processes. (The JAX trainer in one process over
+N devices splits the config's batch instead; the port has one device a
+process, so it follows the multi-process reading.) An epoch is the split's
+size // (batch x N) steps on every rank. The step averages the gradients,
+loss terms and BatchNorm statistics over the ranks (train_step.py); every
+rank builds and grafts the model from the seed, then takes rank 0's
+weights, and restores ``--resume``'s checkpoint itself. Dropout folds the
+rank into its seed (seed of the step x N + rank); augmentation does not.
+Rank 0 alone writes config.json, metrics.jsonl, the checkpoints and
+val.json. A SIGTERM to any rank stops every rank at the same step
+(parallel.StopSignal) and checkpoints ``last``.
 """
 
 from __future__ import annotations
@@ -36,11 +55,13 @@ import argparse
 import dataclasses
 import json
 import signal
+import sys
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from handmvnet_tpu_torch.config import Config
 from handmvnet_tpu_torch.data.dexycb import DexYCBDataset
@@ -56,8 +77,18 @@ from handmvnet_tpu_torch.engine import (
     evaluate,
     make_vertices_fn,
     restore_checkpoint,
-    save_checkpoint,
     write_results_json,
+)
+from handmvnet_tpu_torch.parallel import (
+    StopSignal,
+    broadcast_module_,
+    check_device_count,
+    init_data_parallel,
+    is_main,
+    launched,
+    rank_and_world,
+    spawn_local_ranks,
+    warmup_collectives,
 )
 from handmvnet_tpu_torch.pretrained import load_pretrained_backbone
 from handmvnet_tpu_torch.train_step import build_model, create_train_state, train_step
@@ -109,28 +140,40 @@ def make_device_prepare(cfg: Config, device: str | torch.device = "cuda",
 
 
 def build_dataloaders(cfg: Config, device: str | torch.device = "cuda",
-                      splits: tuple[str, ...] = ("val", "test")) -> tuple[BatchLoader, ...]:
-    """A loader for each split asked for, over the config's shards, in that
-    order: epochs of the split's size // batch batches (at least one), each
-    batch prepared on ``device`` by the loader's preparer stage, the train
-    split's with augmentation when the config asks for it."""
+                      splits: tuple[str, ...] = ("val", "test"), rank: int = 0,
+                      world: int = 1) -> tuple[BatchLoader, ...]:
+    """A loader for each split asked for, over rank ``rank``'s slice of the
+    config's shards out of ``world`` (handmvnet_tpu/train.py:93-110), in that
+    order: epochs of the split's size // (batch x world) batches (at least
+    one), the same count on every rank, each batch prepared on ``device`` by
+    the loader's preparer stage, the train split's with augmentation when
+    the config asks for it."""
     ds_cls = DATASETS[cfg.data.name]
     bs = cfg.data.batch_size
     loaders = []
     for split in splits:
-        ds = ds_cls(cfg.data, split, device=device)
+        ds = ds_cls(cfg.data, split, split_index=rank, split_count=world, device=device)
         augment = split == "train" and cfg.data.augment
         loaders.append(BatchLoader(ds, batch_size=bs,
-                                   steps_per_epoch=max(1, ds.num_samples() // bs),
+                                   steps_per_epoch=max(1, ds.num_samples() // (bs * world)),
                                    device_prepare=make_device_prepare(cfg, device, augment),
                                    device=device))
     return tuple(loaders)
 
 
-def accumulation(cfg: Config) -> int:
-    """The config's accumulate_batch, else the reference's rule on one
-    device: 2 when the batch is under 64."""
-    return cfg.train.accumulate_batch or (2 if cfg.data.batch_size < 64 else 1)
+def accumulation(cfg: Config, world: int = 1) -> int:
+    """The config's accumulate_batch, else the reference's rule
+    (handmvnet_tpu/train.py:269): 2 when the batch is under 64 and there are
+    fewer than 3 ranks."""
+    return cfg.train.accumulate_batch or (
+        2 if cfg.data.batch_size < 64 and world < 3 else 1)
+
+
+def dropout_seed(seed: int, step: int, rank: int = 0, world: int = 1) -> int:
+    """The seed of rank ``rank``'s dropout generator at optimizer step
+    ``step``: distinct for every (step, rank), and at one rank the seed of
+    the step alone."""
+    return (seed * 1_000_003 + step) * world + rank
 
 
 def main(argv=None) -> None:
@@ -145,26 +188,54 @@ def main(argv=None) -> None:
     parser.add_argument("--eval-first", action="store_true",
                         help="one validation pass before training, logged as epoch -1")
     parser.add_argument("--device", default="cuda")
+    parser.add_argument("--num-devices", type=int, default=0,
+                        help="train data-parallel over N ranks of this host, one a device "
+                             "(not under torchrun, which starts the ranks itself)")
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = parser.parse_args(argv)
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
+    device_type = torch.device(args.device).type
+    if device_type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu to train on the CPU")
+    if args.num_devices and not launched():
+        check_device_count(args.num_devices, device_type)
+        if device_type == "cuda":
+            from handmvnet_tpu_torch.ops import _build
+
+            _build.build_all()  # once, before the ranks start
+        spawn_local_ranks(main, (argv,), args.num_devices)
+        return
+    if not launched():
+        _train(args, torch.device(args.device))
+        return
+    device, group = init_data_parallel(device_type)
+    try:
+        warmup_collectives(group, device)
+        _train(args, device, group)
+    finally:
+        dist.destroy_process_group()
+
+
+def _train(args, device: torch.device, group: dist.ProcessGroup | None = None) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    rank, world = rank_and_world(group)
+    main_rank = is_main(group)
 
     cfg = Config.from_yaml(args.config)
     if args.epochs:
         cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, epochs=args.epochs))
     out_dir = Path(args.output_dir or cfg.base_output_dir)
-    out_dir.mkdir(parents=True, exist_ok=True)
-    (out_dir / "config.json").write_text(json.dumps(cfg.to_dict(), indent=2))
-    logger = JsonlLogger(out_dir / "metrics.jsonl")
+    logger = None
+    if main_rank:
+        out_dir.mkdir(parents=True, exist_ok=True)
+        (out_dir / "config.json").write_text(json.dumps(cfg.to_dict(), indent=2))
+        logger = JsonlLogger(out_dir / "metrics.jsonl")
 
     seed = cfg.train.seed
-    accum = accumulation(cfg)
+    accum = accumulation(cfg, world)
     bs = cfg.data.batch_size
-    train_loader, val_loader = build_dataloaders(cfg, device, ("train", "val"))
+    train_loader, val_loader = build_dataloaders(cfg, device, ("train", "val"), rank, world)
     sched_steps = len(train_loader)  # the LR milestones' epoch
     if args.steps_per_epoch:
         train_loader.steps_per_epoch = args.steps_per_epoch
@@ -172,47 +243,62 @@ def main(argv=None) -> None:
 
     model = build_model(cfg, str(device), seed)
     load_pretrained_backbone(model, cfg)
+    if group is not None:
+        broadcast_module_(model, group)
     state = create_train_state(model, cfg, sched_steps)
-    ckpt = CheckpointManager(out_dir / "checkpoints")
+    ckpt = CheckpointManager(out_dir / "checkpoints", group)
     if args.resume and ckpt.last_path.exists():
         restore_checkpoint(ckpt.last_path, state)
-        print(f"resumed from {ckpt.last_path} at step {state.step}")
+        if main_rank:
+            print(f"resumed from {ckpt.last_path} at step {state.step}")
     start_epoch = state.step // steps_per_epoch
-    n_params = sum(p.numel() for p in state.model.parameters())
-    print(f"params: {n_params / 1e6:.2f}M; batch {bs} x {cfg.data.num_views} views, "
-          f"accumulation {accum}, {steps_per_epoch} steps an epoch, {cfg.train.compute_dtype}, "
-          f"device {device}", flush=True)
+    if main_rank:
+        n_params = sum(p.numel() for p in state.model.parameters())
+        ranks = f" on each of {world} ranks" if group is not None else ""
+        print(f"params: {n_params / 1e6:.2f}M; batch {bs} x {cfg.data.num_views} views{ranks}, "
+              f"accumulation {accum}, {steps_per_epoch} steps an epoch, "
+              f"{cfg.train.compute_dtype}, device {device}", flush=True)
     vertices_fn = make_vertices_fn(cfg, str(device)) if cfg.model.get_vertices else None
     generator = torch.Generator(device)
 
     def validate():
-        return evaluate(state.model, val_loader, cfg, mode="val", vertices_fn=vertices_fn)
+        return evaluate(state.model, val_loader, cfg, mode="val", vertices_fn=vertices_fn,
+                        group=group)
 
-    preempted = []
-    previous_handler = signal.signal(signal.SIGTERM, lambda signum, frame: preempted.append(signum))
+    def log(record: dict) -> None:
+        if logger is not None:
+            logger.log(record)
+
+    stop = StopSignal(device, group)
+
+    def on_sigterm(signum, frame):
+        stop.requested = True
+
+    previous_handler = signal.signal(signal.SIGTERM, on_sigterm)
     try:
         if args.eval_first and start_epoch == 0:
             t0 = time.time()
             init_val = validate()
-            logger.log({"epoch": -1, "time_s": round(time.time() - t0, 1),
-                        **{k: v for k, v in init_val.items() if "pck" not in k}})
+            log({"epoch": -1, "time_s": round(time.time() - t0, 1),
+                 **{k: v for k, v in init_val.items() if "pck" not in k}})
 
         for epoch in range(start_epoch, cfg.train.epochs):
             t0 = time.time()
             lr = state.optimizer.param_groups[0]["lr"]  # what this epoch's steps use
             avg = DeviceMetricAverager()
             for batch in train_loader:
-                generator.manual_seed(seed * 1_000_003 + state.step)
-                avg.update(train_step(state, cfg, batch, generator, accum))
-                if preempted:
-                    save_checkpoint(ckpt.last_path, state)
-                    print(f"SIGTERM: checkpointed at epoch {epoch} step {state.step}, exiting",
-                          flush=True)
+                generator.manual_seed(dropout_seed(seed, state.step, rank, world))
+                avg.update(train_step(state, cfg, batch, generator, accum, group))
+                if stop.poll():
+                    ckpt.save_last(state)
+                    if main_rank:
+                        print(f"SIGTERM: checkpointed at epoch {epoch} step {state.step}, "
+                              "exiting", flush=True)
                     return
             train_metrics = avg.result()
             val_metrics = validate()
             ckpt.save(state, epoch, val_metrics.get("val_mpjpe", float("inf")))
-            logger.log({
+            log({
                 "epoch": epoch, "time_s": round(time.time() - t0, 1), "lr": lr,
                 **{f"train/{k}": v for k, v in train_metrics.items()},
                 **{k: v for k, v in val_metrics.items() if "pck" not in k},
@@ -222,8 +308,10 @@ def main(argv=None) -> None:
 
     ckpt.restore_best(state)
     val = validate()
-    write_results_json(out_dir / "val.json", val)
-    print("Validation result:", {k: v for k, v in val.items() if "pck" not in k}, flush=True)
+    if main_rank:
+        write_results_json(out_dir / "val.json", val)
+        print("Validation result:", {k: v for k, v in val.items() if "pck" not in k},
+              flush=True)
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
-"""The training step on one device (counterpart of
-handmvnet_tpu/parallel/train_step.py without ``shard_map`` and ``pmean``).
+"""The training step (counterpart of handmvnet_tpu/parallel/train_step.py),
+on one device or on each rank of a process group.
 
 The optimizer is the reference's: global-norm gradient clipping at
 ``grad_clip``, then AdamW(lr, betas (0.9, 0.999), eps 1e-8, weight decay on
@@ -18,6 +18,15 @@ with fp32 affine parameters and fp32 running statistics, but not bf16 affine
 parameters with fp32 statistics, so the copy rounds the BatchNorm scale and
 shift through bf16 and keeps them fp32: the same values in the same
 precision. Running statistics and losses stay fp32.
+
+With a process group each rank runs the step on its own batch, and after its
+microbatches one all-reduce of one flat buffer averages over the ranks the
+gradients, the loss terms and every BatchNorm running statistic: the three
+``pmean``s of the JAX step (parallel/train_step.py:235-237). The clip then
+sees the averaged gradients, as optax's does, and the ranks' parameters and
+statistics stay bitwise equal. No DistributedDataParallel wrapper: the bf16
+forward goes through ``functional_call``, never through its ``forward``, and
+it would all-reduce at every microbatch's backward.
 """
 
 from __future__ import annotations
@@ -27,11 +36,13 @@ from typing import Dict, Mapping
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from handmvnet_tpu_torch.config import Config
 from handmvnet_tpu_torch.losses import handmvnet_loss
 from handmvnet_tpu_torch.models.handmvnet import HandMvNet
+from handmvnet_tpu_torch.parallel.mesh import all_reduce_mean_
 
 
 @dataclass
@@ -121,12 +132,13 @@ def forward_loss(model: HandMvNet, cfg: Config, batch: Mapping[str, torch.Tensor
 
 
 def accumulate_grads(state: TrainState, cfg: Config, batch: Mapping[str, torch.Tensor],
-                     generator: torch.Generator | None = None,
-                     accum_steps: int = 1) -> Dict[str, torch.Tensor]:
+                     generator: torch.Generator | None = None, accum_steps: int = 1,
+                     group: dist.ProcessGroup | None = None) -> Dict[str, torch.Tensor]:
     """Forward and backward of ``accum_steps`` microbatches (the batch split
     along its first axis, in order), in train mode. Leaves the mean of their
     gradients in each parameter's ``.grad`` and returns the mean of their
-    losses, detached, on the device."""
+    losses, detached, on the device. With ``group``, both means and the
+    BatchNorm running statistics are then averaged over its ranks."""
     model = state.model.train()
     state.optimizer.zero_grad(set_to_none=True)
     b = batch["rgb"].shape[0]
@@ -140,7 +152,29 @@ def accumulate_grads(state: TrainState, cfg: Config, batch: Mapping[str, torch.T
         (losses["loss"] / accum_steps).backward()
         for k, v in losses.items():
             sums[k] = sums[k] + v.detach() if k in sums else v.detach()
-    return {k: v / accum_steps for k, v in sums.items()}
+    means = {k: v / accum_steps for k, v in sums.items()}
+    return means if group is None else _average_over_ranks(model, means, group)
+
+
+def _average_over_ranks(model: nn.Module, losses: Dict[str, torch.Tensor],
+                        group: dist.ProcessGroup) -> Dict[str, torch.Tensor]:
+    """Average the gradients (each ``.grad`` becomes a view of the reduced
+    buffer), the BatchNorm running statistics (in place) and ``losses``
+    (returned) over the group's ranks, in one all-reduce."""
+    params = [p for p in model.parameters() if p.grad is not None]
+    stats = [t for m in model.modules() if isinstance(m, nn.BatchNorm2d)
+             for t in (m.running_mean, m.running_var)]
+    keys = list(losses)
+    parts = [p.grad for p in params] + [losses[k] for k in keys] + stats
+    dtype = params[0].grad.dtype
+    flat = all_reduce_mean_(torch.cat([t.reshape(-1).to(dtype) for t in parts]), group)
+    chunks = iter(flat.split([t.numel() for t in parts]))
+    for p in params:
+        p.grad = next(chunks).view_as(p)
+    averaged = {k: next(chunks).view_as(losses[k]).to(losses[k].dtype) for k in keys}
+    with torch.no_grad():
+        torch._foreach_copy_(stats, [next(chunks).view_as(t) for t in stats])
+    return averaged
 
 
 def optimizer_step(state: TrainState, cfg: Config) -> torch.Tensor:
@@ -155,10 +189,12 @@ def optimizer_step(state: TrainState, cfg: Config) -> torch.Tensor:
 
 
 def train_step(state: TrainState, cfg: Config, batch: Mapping[str, torch.Tensor],
-               generator: torch.Generator | None = None,
-               accum_steps: int = 1) -> Dict[str, torch.Tensor]:
-    """One optimizer step over ``batch``; returns its losses (on the device)."""
-    losses = accumulate_grads(state, cfg, batch, generator, accum_steps)
+               generator: torch.Generator | None = None, accum_steps: int = 1,
+               group: dist.ProcessGroup | None = None) -> Dict[str, torch.Tensor]:
+    """One optimizer step over ``batch`` (this rank's, with ``group``);
+    returns its losses (on the device; with ``group``, their mean over the
+    ranks)."""
+    losses = accumulate_grads(state, cfg, batch, generator, accum_steps, group)
     optimizer_step(state, cfg)
     return losses
 

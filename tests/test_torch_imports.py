@@ -27,6 +27,8 @@ def _imported_roots(path: Path) -> set[str]:
 def test_port_has_files():
     assert len(PORT_FILES) > 15
     assert all(p.exists() for p in PORT_FILES)
+    parallel = {p.name for p in PORT_FILES if p.parent.name == "parallel"}
+    assert parallel == {"__init__.py", "mesh.py"}
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))

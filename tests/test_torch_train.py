@@ -96,7 +96,7 @@ from handmvnet_tpu_torch.train_step import (
     optimizer_step,
     train_step,
 )
-from torch_parity import random_flax_variables, rel_max_err, write_train_shards
+from torch_parity import rel_max_err, scaled_random_variables, write_train_shards
 
 ROOT = Path(__file__).resolve().parents[1]
 CONFIG = ROOT / "configs" / "release" / "HO3D_HandMvNet.yaml"
@@ -438,22 +438,6 @@ def test_freeze_bn_keeps_backbone_statistics():
 # ---------------------------------------------------------------- one optimizer step
 
 
-def _scaled_random_variables(flax_model, args):
-    """Random flax variables in float64, with the heatmap head scaled by 1e-3
-    and the last GCN layer by 1e-2, so that the soft-argmax (at x1000) is not
-    saturated and the predicted joints lie tens of mm from the root, in front
-    of every camera, as a trained model's do: else those paths carry almost
-    no gradient, or sit near the projection's pole."""
-    variables = random_flax_variables(flax_model, 17, *args)
-    params = variables["params"]
-    for name in ("kernel", "bias"):
-        params["pose_net_3"][name] = params["pose_net_3"][name] * 1e-3
-    for name in ("weight", "bias"):
-        params["joints_decoder"]["joints_gcn3"][name] = (
-            params["joints_decoder"]["joints_gcn3"][name] * 1e-2)
-    return jax.tree.map(lambda a: np.asarray(a, np.float64), variables)
-
-
 # conv biases followed by a train-mode BatchNorm: their exact gradient is 0
 ZERO_GRAD_LEAVES = ("pose_net.0.bias", "sample_nets.0.conv.0.bias")
 
@@ -471,7 +455,7 @@ def step_case(request):
         flax_model = FlaxHandMvNet(cfg=jcfg.model, image_size=IMAGE, heatmap_size=HEATMAP,
                                    dropout=0.0)
         jbatch = {k: jnp.asarray(v) for k, v in data.items()}
-        variables = _scaled_random_variables(
+        variables = scaled_random_variables(
             flax_model, [jbatch[k] for k in ("rgb", "bboxes", "intrinsic")])
         grad_fn = jax.jit(jax.grad(partial(jax_forward_loss, flax_model, jcfg), has_aux=True))
         mb = BATCH // accum

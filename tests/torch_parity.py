@@ -35,6 +35,22 @@ def random_flax_variables(module, seed: int, *args, **kwargs) -> dict:
     return jax.tree_util.tree_map_with_path(make, shapes)
 
 
+def scaled_random_variables(flax_model, args) -> dict:
+    """Random flax variables (seed 17) in float64, with the heatmap head
+    scaled by 1e-3 and the last GCN layer by 1e-2, so that the soft-argmax
+    (at x1000) is not saturated and the predicted joints lie tens of mm from
+    the root, in front of every camera, as a trained model's do: else those
+    paths carry almost no gradient, or sit near the projection's pole."""
+    variables = random_flax_variables(flax_model, 17, *args)
+    params = variables["params"]
+    for name in ("kernel", "bias"):
+        params["pose_net_3"][name] = params["pose_net_3"][name] * 1e-3
+    for name in ("weight", "bias"):
+        params["joints_decoder"]["joints_gcn3"][name] = (
+            params["joints_decoder"]["joints_gcn3"][name] * 1e-2)
+    return jax.tree.map(lambda a: np.asarray(a, np.float64), variables)
+
+
 def rel_max_err(got: np.ndarray, ref: np.ndarray) -> float:
     """max |got - ref| / max |ref|."""
     return float(np.max(np.abs(got - ref)) / np.max(np.abs(ref)))
