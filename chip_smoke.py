@@ -37,8 +37,8 @@ Phases; any failure exits nonzero and prints no result:
      without it);
   7. the HRNet model of the HR release configs (configs/release/*_HR*.yaml,
      HRNet w40, whose stem is two 3x3 convs: K2 is off its path): the
-     eval_fps protocol on the HO3D HR config with the mesh stage in fp32 and
-     bf16, the counters set to 0 just before and read just after (K1 5
+     eval_fps protocol, cut to 20 warmup + 2 x 200 forwards, on the HO3D HR
+     config with the mesh stage in fp32 and bf16, the counters set to 0 just before and read just after (K1 5
      launches a forward, K2 none; outputs, vertices among them, finite
      fp32 of the expected shapes on the card); the fp32 kernel path against
      the plain path (phase 5's tolerances); then the HR release recipe's
@@ -98,10 +98,28 @@ Phases; any failure exits nonzero and prints no result:
      on NCCL, one epoch on phase 9's shards (phase 9's launch and finiteness
      checks), its ms a step against phase 9's one-process fp32 step and the
      all-reduce's ms;
- 11. a {"kernels": [...]} line (the HR rows carry K1's launches on the HR
+ 11. the user-facing drivers: the versions of cv2, matplotlib and
+     tensorboard (their imports are lazy, and each may be absent); infer.py
+     on the card in fp32 (prepare, infer_step, write_panels) with
+     --synthetic on the HO3D release config and its HR config, and on phase
+     8's test shards with phase 8's reference checkpoint, the counters set
+     to 0 just before the step and read just after (K1 5 launches, K2 1 on
+     ResNet and 0 on HR), outputs fp32, finite and of the expected shapes
+     (vertices [1, 778, 3]), the kernel path against the plain path (phase
+     5's tolerances), the step's device and wall ms, and the panels whose
+     library is present, non-empty; train.main with the vis hook every epoch
+     and train.num_devices 1 on phase 9's shards (1 epoch of 2 steps, fp32,
+     no process group): phase 9's launch checks with the hook's two eval
+     forwards (K1 5 and K2 1 each), vis/{train,val}/joints2d_0.png and
+     projected_joints2d_0.png, tb/'s scalars equal to metrics.jsonl's where
+     tensorboard is present, and the hook's ms; eval.main through the
+     env:// rendezvous at world size 1 on NCCL on phase 8's shards and
+     checkpoint, every metric within rel 1e-6 of phase 8's one-process eval;
+ 12. a {"kernels": [...]} line (the HR rows carry K1's launches on the HR
      paths, the /eval rows the launches of phase 8's eval runs, the
-     /train_shards rows phase 9's, the /train_dp rows phase 10's), then the
-     {"ok": true, ...} line last.
+     /train_shards rows phase 9's, the /train_dp rows phase 10's, the
+     /infer, /vis and /eval_dp rows phase 11's), then the {"ok": true, ...}
+     line last.
 Each phase prints its seconds.
 
 fp32 means fp32 here: TF32 is switched off for matmuls and cuDNN convs.
@@ -129,6 +147,9 @@ REPO = Path(__file__).resolve().parent
 CONFIG = REPO / "configs" / "release" / "HO3D_HandMvNet.yaml"
 HR_CONFIG = REPO / "configs" / "release" / "HO3D_HandMvNet_HR.yaml"
 WARMUP, ITERS = 100, 1000  # the reference's protocol; warmup + 2 * ITERS forwards per dtype
+# the HR model's protocol, cut to a fifth: at 45-105 ms a step the whole one took
+# 240-350 s of the script's time limit
+HR_WARMUP, HR_ITERS = 20, 200
 
 # H100 SXM data sheet: HBM rate, dense tensor-core peaks. The fp32 kernels run
 # each f32 product as three TF32 products (3xTF32), so their peak is a third of
@@ -558,8 +579,8 @@ def train_kernel_vs_plain(attention_ops, stem_ops, config: Path = CONFIG,
 
 
 def serve(attention_ops, stem_ops, cfg, label: str, dtype_name: str, with_vertices: bool,
-          stem_per_forward: int):
-    """The eval_fps protocol (b1 x v8 x 256^2, WARMUP + 2 x ITERS forwards)
+          stem_per_forward: int, warmup: int = WARMUP, iters: int = ITERS):
+    """The eval_fps protocol (b1 x v8 x 256^2, warmup + 2 x iters forwards)
     with the launch counters set to 0 just before and read just after: K1
     must launch 5 times a forward and K2 ``stem_per_forward`` times; the
     outputs must be fp32, finite, on the card and of the expected shapes.
@@ -568,7 +589,7 @@ def serve(attention_ops, stem_ops, cfg, label: str, dtype_name: str, with_vertic
 
     attention_ops.fused_attention.launches = 0
     stem_ops.stem_conv_nchw.launches = 0
-    stats, out = run_protocol(cfg, views=8, dtype=DTYPES[dtype_name], warmup=WARMUP, iters=ITERS,
+    stats, out = run_protocol(cfg, views=8, dtype=DTYPES[dtype_name], warmup=warmup, iters=iters,
                               device="cuda", seed=0, with_vertices=with_vertices)
     torch.cuda.synchronize()
     got = (attention_ops.fused_attention.launches, stem_ops.stem_conv_nchw.launches)
@@ -720,11 +741,12 @@ def data_path_check(cfg, card_line: str) -> None:
 
 
 def eval_run(attention_ops, stem_ops, config: Path, ckpt: Path, label: str,
-             stem_per_forward: int) -> tuple[int, int]:
+             stem_per_forward: int, argv: tuple = ()) -> tuple[tuple[int, int], dict]:
     """eval.py on the card in fp32 (val, then test), the counters set to 0
     just before and read just after: K1 5 launches a forward, K2
     ``stem_per_forward``; val.json and test.json beside the checkpoint with
-    every metric finite, vertex metrics included."""
+    every metric finite, vertex metrics included. Returns the launches and
+    the results."""
     from handmvnet_tpu_torch import eval as port_eval
     from handmvnet_tpu_torch.config import Config
 
@@ -733,7 +755,7 @@ def eval_run(attention_ops, stem_ops, config: Path, ckpt: Path, label: str,
     attention_ops.fused_attention.launches = 0
     stem_ops.stem_conv_nchw.launches = 0
     t0 = time.perf_counter()
-    results = port_eval.main(["--config", str(config), "--checkpoint", str(ckpt)])
+    results = port_eval.main(["--config", str(config), "--checkpoint", str(ckpt), *argv])
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     got = (attention_ops.fused_attention.launches, stem_ops.stem_conv_nchw.launches)
@@ -752,7 +774,7 @@ def eval_run(attention_ops, stem_ops, config: Path, ckpt: Path, label: str,
             fail(f"{label} eval: {mode}.json lacks the vertex metrics or differs from the run")
         if not np.isfinite(values).all():
             fail(f"{label} eval: {mode}.json has a metric that is not finite: {written}")
-    return got
+    return got, results
 
 
 def eval_kernel_vs_plain(attention_ops, stem_ops, config: Path, ckpt: Path, label: str) -> None:
@@ -835,10 +857,10 @@ def eval_throughput(config: Path, label: str, card_line: str) -> dict:
     return {"loader_sps": loader_sps, "eval_sps": eval_sps, "forward_ms": fwd_ms}
 
 
-def data_and_eval_phase(attention_ops, stem_ops, gen, card_line: str) -> dict:
-    """Phase 8 (see the module docstring). Returns the kernel rows' inputs."""
-    import tempfile
-
+def data_and_eval_phase(attention_ops, stem_ops, gen, card_line: str, tmp: Path) -> dict:
+    """Phase 8 (see the module docstring), in the new directory ``tmp``.
+    Returns the kernel rows' inputs, and each model's config, checkpoint and
+    eval results."""
     from handmvnet_tpu_torch.config import Config
     from handmvnet_tpu_torch.data import jpeg
     from handmvnet_tpu_torch.data.synthetic import write_synthetic_ho3d_shards
@@ -859,36 +881,35 @@ def data_and_eval_phase(attention_ops, stem_ops, gen, card_line: str) -> dict:
             fail(f"nvJPEG's decode of the fixture is off libjpeg's pixels at batch {n}")
     decode_timed([payload] * (EVAL_BATCH * EVAL_VIEWS), "the fixture", card_line)
 
-    (REPO / "build").mkdir(exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=REPO / "build", prefix="chip_smoke_") as tmp:
-        tmp = Path(tmp)
-        t0 = time.perf_counter()
-        for split, shards in (("train", 9), ("test", 3)):
-            write_synthetic_ho3d_shards(tmp / "data", num_shards=shards,
-                                        samples_per_shard=SHARD_SAMPLES, num_views=EVAL_VIEWS,
-                                        split=split, seed=len(split),
-                                        consistent_geometry=True, device="cuda")
-        mano = synthetic_mano_model()
-        np.savez(tmp / "MANO_RIGHT.npz", v_template=mano.v_template, shapedirs=mano.shapedirs,
-                 posedirs=mano.posedirs, J_regressor=mano.j_regressor,
-                 weights=mano.lbs_weights, f=mano.faces, hands_mean=mano.hands_mean)
-        print(f"wrote 12 HO3D-layout shards ({12 * SHARD_SAMPLES * EVAL_VIEWS} frames "
-              f"encoded by nvJPEG) in {time.perf_counter() - t0:.2f} s", flush=True)
+    tmp.mkdir(parents=True)
+    t0 = time.perf_counter()
+    for split, shards in (("train", 9), ("test", 3)):
+        write_synthetic_ho3d_shards(tmp / "data", num_shards=shards,
+                                    samples_per_shard=SHARD_SAMPLES, num_views=EVAL_VIEWS,
+                                    split=split, seed=len(split),
+                                    consistent_geometry=True, device="cuda")
+    mano = synthetic_mano_model()
+    np.savez(tmp / "MANO_RIGHT.npz", v_template=mano.v_template, shapedirs=mano.shapedirs,
+             posedirs=mano.posedirs, J_regressor=mano.j_regressor,
+             weights=mano.lbs_weights, f=mano.faces, hands_mean=mano.hands_mean)
+    print(f"wrote 12 HO3D-layout shards ({12 * SHARD_SAMPLES * EVAL_VIEWS} frames "
+          f"encoded by nvJPEG) in {time.perf_counter() - t0:.2f} s", flush=True)
 
-        rows = {}
-        for label, src, stem_per_forward in (("ResNet", CONFIG, 1), ("HR", HR_CONFIG, 0)):
-            run_dir = tmp / label
-            run_dir.mkdir()
-            config = write_eval_config(src, run_dir, tmp / "data", tmp / "MANO_RIGHT.npz")
-            cfg = Config.from_yaml(config)
-            if label == "ResNet":
-                data_path_check(cfg, card_line)
-            ckpt = run_dir / "reference.pth"
-            write_reference_checkpoint(cfg, ckpt)
-            rows[label] = {"launches": eval_run(attention_ops, stem_ops, config, ckpt, label,
-                                                stem_per_forward)}
-            eval_kernel_vs_plain(attention_ops, stem_ops, config, ckpt, label)
-            rows[label].update(eval_throughput(config, label, card_line))
+    rows = {}
+    for label, src, stem_per_forward in (("ResNet", CONFIG, 1), ("HR", HR_CONFIG, 0)):
+        run_dir = tmp / label
+        run_dir.mkdir()
+        config = write_eval_config(src, run_dir, tmp / "data", tmp / "MANO_RIGHT.npz")
+        cfg = Config.from_yaml(config)
+        if label == "ResNet":
+            data_path_check(cfg, card_line)
+        ckpt = run_dir / "reference.pth"
+        write_reference_checkpoint(cfg, ckpt)
+        launches, results = eval_run(attention_ops, stem_ops, config, ckpt, label,
+                                     stem_per_forward)
+        rows[label] = {"launches": launches, "results": results, "config": config, "ckpt": ckpt}
+        eval_kernel_vs_plain(attention_ops, stem_ops, config, ckpt, label)
+        rows[label].update(eval_throughput(config, label, card_line))
 
     # K1 at the eval shapes (batch 16, 5 views) and K2 at 80 images
     rows["attn"] = {d: check_attention(attention_ops, d, gen, TRAIN_ATTN_SHAPES, EVAL_BATCH)
@@ -985,7 +1006,8 @@ def train_loader_rate(cfg, eval_loader_sps: float, step_sps: float, card_line: s
 
 
 def shard_train_run(attention_ops, stem_ops, config: Path, out_dir: Path, label: str,
-                    args: list, stem_per_step: int, device_prefetch: bool = True) -> dict:
+                    args: list, stem_per_step: int, device_prefetch: bool = True,
+                    extra_forwards: int = 0) -> dict:
     """train.main on the smoke shards with the counters set to 0 just before
     and read just after: every optimizer step must launch K1 10 times and K2
     ``stem_per_step`` times, and the run in all 10 and 2 (or 0) a step plus 5
@@ -994,7 +1016,8 @@ def shard_train_run(attention_ops, stem_ops, config: Path, out_dir: Path, label:
     an epoch (the first step of each epoch, after validation, left out): the
     device's time per step, waits for data included. ``device_prefetch``
     False prepares each batch on the consumer's thread (this run is the one
-    caller of that setting)."""
+    caller of that setting). ``extra_forwards``: eval forwards beyond the
+    validations' (the vis hook's), each K1 5 and K2 ``stem_per_step // 2``."""
     import functools
 
     from handmvnet_tpu_torch import train as train_mod
@@ -1037,7 +1060,8 @@ def shard_train_run(attention_ops, stem_ops, config: Path, out_dir: Path, label:
     steps = len(ends)
     records = [json.loads(line) for line in metrics.read_text().splitlines()][records_before:]
     val_steps = max(1, cfg.data.split_size("val") // cfg.data.batch_size)
-    val_forwards = (len(records) + 1) * val_steps  # each epoch's and the best's validation
+    # each epoch's validation, the best checkpoint's and the extra forwards
+    val_forwards = (len(records) + 1) * val_steps + extra_forwards
     gaps = [a.elapsed_time(b) for e in range(0, steps, spe)
             for a, b in zip(ends[e:e + spe], ends[e + 1:e + spe])]
     ms = sum(gaps) / len(gaps)
@@ -1348,6 +1372,237 @@ def dp_train_main(attention_ops, stem_ops, config: Path, out_dir: Path, one_proc
     return {**run, "reduce_ms": times}
 
 
+def probe_libraries() -> dict:
+    """{name: version, or None where absent} of the drivers' lazy imports:
+    cv2 (the 2D panels), matplotlib (the 3D panels), tensorboard (tb/)."""
+    import importlib
+    import importlib.util
+
+    found = {}
+    for name in ("cv2", "matplotlib", "tensorboard"):
+        found[name] = None
+        if importlib.util.find_spec(name) is not None:
+            found[name] = getattr(importlib.import_module(name), "__version__", "present")
+        print(f"library {name}: {found[name] or 'absent'}", flush=True)
+    return found
+
+
+def infer_run(attention_ops, stem_ops, argv: list, label: str, stem_per_forward: int,
+              libs: dict, card_line: str) -> dict:
+    """infer.py's step on the card (prepare, infer_step, write_panels), fp32,
+    the counters set to 0 just before the step and read just after: K1 5
+    launches, K2 ``stem_per_forward``; outputs fp32, finite, on the card, of
+    the expected shapes; the kernel path against the plain path (PATH_TOLS);
+    the step's device ms (CUDA events) and wall ms (host clock to a
+    synchronize), medians of 20; the panels whose library is present,
+    non-empty."""
+    from handmvnet_tpu_torch import infer
+
+    args = infer.parse_args(argv)
+    model, batch, mesh_stage = infer.prepare(args)
+    attention_ops.fused_attention.launches = 0
+    stem_ops.stem_conv_nchw.launches = 0
+    out = infer.infer_step(model, mesh_stage, batch)
+    torch.cuda.synchronize()
+    got = (attention_ops.fused_attention.launches, stem_ops.stem_conv_nchw.launches)
+    if got != (5, stem_per_forward):
+        fail(f"{label}: kernel launches {got}, expected (5, {stem_per_forward}) in one step")
+    views = batch["rgb"].shape[1]
+    shapes = {"joints_cam": (1, 21, 3), "joints_crop_img": (1, views, 21, 2),
+              "heatmap": (1, views, 21, 32, 32), "vertices": (1, 778, 3)}
+    for key, shape in shapes.items():
+        v = out[key]
+        if tuple(v.shape) != shape or v.dtype != torch.float32 or v.device.type != "cuda" \
+                or not torch.isfinite(v).all():
+            fail(f"{label}: {key} is {tuple(v.shape)} {v.dtype} on {v.device}, expected "
+                 f"{shape} fp32 finite on the card")
+    with plain_kernels(attention_ops, stem_ops):
+        out_p = infer.infer_step(model, mesh_stage, batch)
+    compare_paths(out, out_p, label)
+
+    device_ms, wall_ms = [], []
+    for _ in range(20):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        infer.infer_step(model, mesh_stage, batch)
+        end.record()
+        torch.cuda.synchronize()
+        wall_ms.append((time.perf_counter() - t0) * 1e3)
+        device_ms.append(start.elapsed_time(end))
+    step_ms = {"device_ms": float(np.median(device_ms)), "wall_ms": float(np.median(wall_ms))}
+    print(f"{label} fp32: launches K1={got[0]} K2={got[1]}; step device_ms="
+          f"{step_ms['device_ms']:.4f} wall_ms={step_ms['wall_ms']:.4f} (medians of 20); "
+          f"{card_line}", flush=True)
+
+    drawable = [n for n, lib in infer.PANELS.items() if libs[lib]]
+    for name in sorted(set(infer.PANELS) - set(drawable)):
+        print(f"{label}: {name} not drawn: {infer.PANELS[name]} is absent", flush=True)
+    t0 = time.perf_counter()
+    paths = infer.write_panels(Path(args.output_dir), batch, out, mesh_stage.mano.model.faces,
+                               drawable)
+    sizes = {p.name: p.stat().st_size for p in paths}
+    print(f"{label}: panels {sizes} bytes in {time.perf_counter() - t0:.2f} s", flush=True)
+    if not all(sizes.values()):
+        fail(f"{label}: an empty panel: {sizes}")
+    return {"launches": got, **step_ms}
+
+
+def tensorboard_matches(run_dir: Path) -> None:
+    """tb/'s scalars, read back with TensorBoard's EventAccumulator, equal
+    metrics.jsonl's numbers (as float32) at each record's epoch."""
+    from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+
+    events = EventAccumulator(str(run_dir / "tb"))
+    events.Reload()
+    records = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
+    want = {(k, r["epoch"]): np.float32(v) for r in records for k, v in r.items()
+            if isinstance(v, (int, float)) and k != "epoch"}
+    got = {(k, e.step): np.float32(e.value) for k in events.Tags()["scalars"]
+           for e in events.Scalars(k)}
+    print(f"tb/: {len(got)} scalars against metrics.jsonl's {len(want)}", flush=True)
+    if got != want:
+        fail(f"tb/ differs from metrics.jsonl: {sorted(set(got.items()) ^ set(want.items()))[:6]}")
+
+
+def vis_train_run(attention_ops, stem_ops, phase9_config: Path, out_dir: Path, libs: dict
+                  ) -> dict:
+    """train.main at world size 1 on phase 9's shards with the vis hook every
+    epoch and ``train.num_devices: 1`` (1 epoch of 2 steps, fp32; phase 9's
+    launch and finiteness checks, with the hook's two eval forwards): no
+    process group, the four PNGs of epoch 0, and tb/ equal to
+    metrics.jsonl where tensorboard is present. Returns the run, with the
+    hook's ms and launches."""
+    import torch.distributed as dist
+
+    from handmvnet_tpu_torch import train as train_mod
+
+    text = phase9_config.read_text()
+    text, n_vis = re.subn(r"(?m)^  vis_every_n_epochs: .*$", "  vis_every_n_epochs: 1", text)
+    text, n_train = re.subn(r"(?m)^train:$", "train:\n  num_devices: 1", text)
+    if (n_vis, n_train) != (1, 1):
+        fail(f"{phase9_config.name}: no vis_every_n_epochs or train: line")
+    config = out_dir.parent / "vis_train.yaml"
+    config.write_text(text)
+    args = ["--epochs", "1", "--steps-per-epoch", "2"]
+    if not libs["cv2"]:  # train.py must refuse before its first step
+        try:
+            train_mod.main(["--config", str(config), "--output-dir", str(out_dir), *args])
+        except ImportError as e:
+            print(f"vis hook: train.main stopped before step 1 without cv2: {e}", flush=True)
+            return {}
+        fail("train.main ran a run whose vis hook draws without cv2")
+
+    calls = []
+    real_make = train_mod.make_vis_hook
+
+    def make_timed_hook(*a, **k):
+        hook = real_make(*a, **k)
+
+        def timed(model, batch, epoch, mode):
+            if dist.is_initialized():
+                fail("train.main started a process group with train.num_devices: 1")
+            before = (attention_ops.fused_attention.launches, stem_ops.stem_conv_nchw.launches)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            hook(model, batch, epoch, mode)  # ends in its copy to the host
+            calls.append({"mode": mode, "ms": (time.perf_counter() - t0) * 1e3,
+                          "launches": (attention_ops.fused_attention.launches - before[0],
+                                       stem_ops.stem_conv_nchw.launches - before[1])})
+        return timed
+
+    train_mod.make_vis_hook = make_timed_hook
+    try:
+        run = shard_train_run(attention_ops, stem_ops, config, out_dir,
+                              "training on shards float32 with the vis hook every epoch", args,
+                              stem_per_step=2, extra_forwards=2)
+    finally:
+        train_mod.make_vis_hook = real_make
+    for call in calls:
+        print(f"vis hook ({call['mode']}, batch {EVAL_BATCH} x {EVAL_VIEWS} views): "
+              f"{call['ms']:.2f} ms, launches K1={call['launches'][0]} "
+              f"K2={call['launches'][1]}", flush=True)
+    if [c["launches"] for c in calls] != [(5, 1), (5, 1)]:
+        fail(f"vis hook: {calls}, expected a train and a val call of K1 5 and K2 1")
+    names = [f"{mode}/{p}joints2d_0.png" for mode in ("train", "val") for p in ("", "projected_")]
+    sizes = {n: (out_dir / "vis" / n).stat().st_size if (out_dir / "vis" / n).exists() else 0
+             for n in names}
+    print(f"vis/: {sizes} bytes", flush=True)
+    if not all(sizes.values()):
+        fail(f"vis hook: a PNG is missing or empty: {sizes}")
+    if libs["tensorboard"]:
+        tensorboard_matches(out_dir)
+    else:
+        print("tb/ not checked: tensorboard is absent (train.py warned and logged "
+              "metrics.jsonl alone)", flush=True)
+    return {**run, "hook": calls,
+            "hook_launches": tuple(map(sum, zip(*(c["launches"] for c in calls))))}
+
+
+def eval_nccl_run(attention_ops, stem_ops, phase8: dict, out_dir: Path) -> tuple:
+    """eval.main through the env:// rendezvous at world size 1 on NCCL
+    (--num-devices unset; the config with train.num_devices: 1) on phase 8's
+    shards and reference checkpoint: eval_run's checks, and every metric
+    within rel 1e-6 of phase 8's one-process eval."""
+    import os
+
+    from handmvnet_tpu_torch.parallel.mesh import free_port
+
+    out_dir.mkdir(parents=True)
+    config = out_dir / "eval_nccl.yaml"
+    config.write_text(re.sub(r"(?m)^train:$", "train:\n  num_devices: 1",
+                             phase8["config"].read_text()))
+    ckpt = out_dir / phase8["ckpt"].name
+    shutil.copy(phase8["ckpt"], ckpt)
+    env = {"RANK": "0", "LOCAL_RANK": "0", "WORLD_SIZE": "1", "LOCAL_WORLD_SIZE": "1",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port())}
+    os.environ.update(env)
+    try:
+        launches, results = eval_run(attention_ops, stem_ops, config, ckpt,
+                                     "ResNet, world size 1 on NCCL (env://),", 1)
+    finally:
+        for key in env:
+            del os.environ[key]
+    worst = 0.0
+    for mode, ref in phase8["results"].items():
+        for key, value in ref.items():
+            a, b = np.asarray(results[mode][key], np.float64), np.asarray(value, np.float64)
+            scale = np.abs(b).max()
+            worst = max(worst, float(np.abs(a - b).max() / scale) if scale else
+                        float(np.abs(a).max()))
+    print(f"eval.main at world size 1 on NCCL against phase 8's one-process eval: worst rel "
+          f"{worst:.3e} (limit 1e-6)", flush=True)
+    if not worst <= 1e-6:
+        fail(f"eval.main on NCCL differs from the one-process eval by rel {worst}")
+    return launches
+
+
+def drivers_phase(attention_ops, stem_ops, gen, evals: dict, phase9_config: Path,
+                  card_line: str, tmp: Path) -> dict:
+    """Phase 11 (see the module docstring), in the new directory ``tmp``.
+    Returns the kernel rows' inputs."""
+    t0 = time.perf_counter()
+    tmp.mkdir(parents=True)
+    libs = probe_libraries()
+    rows = {}
+    for label, config, stem_per_forward in (("infer", CONFIG, 1), ("infer HR", HR_CONFIG, 0)):
+        rows[label] = infer_run(attention_ops, stem_ops, [
+            "--config", str(config), "--synthetic", "--output-dir", str(tmp / label)],
+            f"{label} --synthetic", stem_per_forward, libs, card_line)
+    resnet = evals["ResNet"]
+    rows["infer shards"] = infer_run(attention_ops, stem_ops, [
+        "--config", str(resnet["config"]), "--checkpoint", str(resnet["ckpt"]),
+        "--output-dir", str(tmp / "infer_shards")],
+        "infer on phase 8's test shards and checkpoint", 1, libs, card_line)
+    rows["vis"] = vis_train_run(attention_ops, stem_ops, phase9_config, tmp / "vis_train", libs)
+    rows["eval_dp"] = eval_nccl_run(attention_ops, stem_ops, resnet, tmp / "eval_nccl")
+    print(f"phase 11 (drivers), checks: {time.perf_counter() - t0:.1f} s", flush=True)
+    # K1 and K2 at infer's shapes (batch 1 x 5 views), for the kernel line
+    rows["attn"] = check_attention(attention_ops, torch.float32, gen, TRAIN_ATTN_SHAPES, 1)
+    rows["stem"] = check_stem(stem_ops, torch.float32, gen, (EVAL_VIEWS, 256, 256))
+    return rows
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: chip_smoke.py runs the port on an NVIDIA GPU only")
@@ -1453,25 +1708,29 @@ def main() -> None:
     t_phase = time.perf_counter()
     hr_cfg = Config.from_yaml(HR_CONFIG)
     hr_launches = {dtype: serve(attention_ops, stem_ops, hr_cfg, "HR", name, True,
-                                stem_per_forward=0)[0] for name, dtype in DTYPES.items()}
+                                stem_per_forward=0, warmup=HR_WARMUP, iters=HR_ITERS)[0]
+                   for name, dtype in DTYPES.items()}
     serve_kernel_vs_plain(attention_ops, stem_ops, hr_cfg, "HR")
     hr_train = {DTYPES[name]: train_run(attention_ops, stem_ops, name, HR_CONFIG, stem_per_step=0)
                 for name in DTYPES}
     train_kernel_vs_plain(attention_ops, stem_ops, HR_CONFIG)
     print(f"phase 7 (HRNet): {time.perf_counter() - t_phase:.1f} s", flush=True)
 
-    # 8. the data path and eval.py on shards in the config's layout
-    t_phase = time.perf_counter()
-    evals = data_and_eval_phase(attention_ops, stem_ops, gen, card_line)
-    print(f"phase 8 (data path and eval): {time.perf_counter() - t_phase:.1f} s", flush=True)
-
     import tempfile
 
-    with tempfile.TemporaryDirectory(dir=REPO / "build", prefix="chip_smoke_train_") as tmp:
+    (REPO / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=REPO / "build", prefix="chip_smoke_") as tmp:
+        tmp = Path(tmp)
+        # 8. the data path and eval.py on shards in the config's layout
+        t_phase = time.perf_counter()
+        evals = data_and_eval_phase(attention_ops, stem_ops, gen, card_line, tmp / "eval")
+        print(f"phase 8 (data path and eval): {time.perf_counter() - t_phase:.1f} s", flush=True)
+
         # 9. training on shards: the train split's stream, augmentation, the preparer stage
         t_phase = time.perf_counter()
+        (tmp / "train").mkdir()
         shards, shard_configs = shard_training_phase(attention_ops, stem_ops, train, evals,
-                                                     card_line, Path(tmp))
+                                                     card_line, tmp / "train")
         print(f"phase 9 (training on shards): {time.perf_counter() - t_phase:.1f} s", flush=True)
 
         # 10. data-parallel training: two ranks sharing the card, then train.py on NCCL
@@ -1479,11 +1738,17 @@ def main() -> None:
         torch.cuda.empty_cache()
         dp = dp_shared_card(card_line)
         dp_nccl = dp_train_main(attention_ops, stem_ops, shard_configs["float32"],
-                                Path(tmp) / "dp_nccl", shards["float32"], card_line)
+                                tmp / "train" / "dp_nccl", shards["float32"], card_line)
         print(f"phase 10 (data-parallel training): {time.perf_counter() - t_phase:.1f} s",
               flush=True)
 
-    # 11. the record
+        # 11. the user-facing drivers: infer.py, the vis hook and tb/, eval.py on NCCL
+        t_phase = time.perf_counter()
+        drivers = drivers_phase(attention_ops, stem_ops, gen, evals, shard_configs["float32"],
+                                card_line, tmp / "drivers")
+        print(f"phase 11 (drivers): {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # 12. the record
     def times(t: dict) -> dict:
         return {"ms": t["kernel"]["device"], "plain_ms": t["plain"]["device"],
                 "library_ms": t["library"]["device"], "eager_ms": t["kernel"]["eager"],
@@ -1592,6 +1857,30 @@ def main() -> None:
             fp32, train_stem[fp32], k2, (label, f"{what}: microbatch forward x [40, 3, 256, 256]"),
             backward="torch.nn.grad.conv2d_weight", backward_ms=stem_bwd[fp32]["ms"],
             backward_max_abs_err=stem_bwd[fp32]["err"]))
+    # phase 11's: infer at batch 1 x 5 views (its own rows' times), the vis hook and
+    # eval.py on NCCL at the /eval shapes (batch 16 x 5 views: the /eval rows' times)
+    infer_calls = TRAIN_ATTN_CALLS  # the training microbatch's shapes, at batch 1
+    for label, key, what in (("/infer", "infer", "ResNet"), ("/infer_hr", "infer HR", "HRNet")):
+        kernels.append(attention_record(
+            fp32, drivers["attn"], infer_calls, drivers[key]["launches"][0],
+            (label, f"infer.py {what} step at batch 1 x 5 views: (105,105) x2 + (21,84) + "
+             "(21,21) x2"), step_device_ms=drivers[key]["device_ms"],
+            step_wall_ms=drivers[key]["wall_ms"]))
+    kernels.append(stem_record(fp32, drivers["stem"], drivers["infer"]["launches"][1],
+                               ("/infer", "infer.py ResNet step: x [5, 3, 256, 256]"),
+                               step_device_ms=drivers["infer"]["device_ms"],
+                               step_wall_ms=drivers["infer"]["wall_ms"]))
+    dp_evals = {"/eval_dp": (drivers["eval_dp"], "eval.py at world size 1 on NCCL")}
+    if drivers["vis"]:
+        dp_evals["/vis"] = (drivers["vis"]["hook_launches"],
+                            "train.py's vis hook, a train and a val batch")
+    for label, ((k1, k2), what) in dp_evals.items():
+        kernels.append(attention_record(
+            fp32, evals["attn"][fp32], eval_calls, k1,
+            (label, f"{what}: forward at batch 16 x 5 views: (105,105) x2 + (21,84) + "
+             "(21,21) x2")))
+        kernels.append(stem_record(fp32, evals["stem"][fp32], k2,
+                                   (label, f"{what}: forward x [80, 3, 256, 256]")))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the card check", flush=True)
     print(card_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

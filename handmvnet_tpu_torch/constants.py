@@ -1,8 +1,29 @@
 """Hand-skeleton and MANO constants (the subset of handmvnet_tpu/constants.py
-that the inference path and the mesh stage use)."""
+that the inference path, the mesh stage and the visualisation use)."""
+
+import numpy as np
 
 NUM_JOINTS = 21
 NUM_MANO_VERTS = 778
+
+# 14 extra triangles that close the MANO mesh at the wrist (the released
+# mesh is open there); vertex ids are a public constant from
+# hassony2/handobjectconsist meshreg/models/manoutils.py, used by the
+# reference visualizer (src/vis/utils.py:23-46)
+MANO_CLOSED_FIST_FACES = (
+    (92, 38, 122), (234, 92, 122), (239, 234, 122), (279, 239, 122),
+    (215, 279, 122), (215, 122, 118), (215, 118, 117), (215, 117, 119),
+    (215, 119, 120), (215, 120, 108), (215, 108, 79), (215, 79, 78),
+    (215, 78, 121), (214, 215, 121),
+)
+
+
+def close_mano_faces(faces: np.ndarray) -> np.ndarray:
+    """Append the wrist-closing triangles to a MANO face list."""
+    return np.concatenate(
+        [np.asarray(faces, np.int32), np.asarray(MANO_CLOSED_FIST_FACES, np.int32)]
+    )
+
 
 # 20 bones of the 21-joint hand skeleton (MANO & Mediapipe ordering):
 # wrist=0; each finger chain root->tip
@@ -12,6 +33,16 @@ HAND_EDGES = (
     (0, 9), (9, 10), (10, 11), (11, 12),  # middle
     (0, 13), (13, 14), (14, 15), (15, 16),  # ring
     (0, 17), (17, 18), (18, 19), (19, 20),  # little
+)
+
+# RGB colors for drawing the wrist + 20 bones (reference src/constants.py:43-49)
+HAND_EDGE_COLORS = (
+    (1.0, 0.0, 0.0),
+    (0.0, 0.4, 0.0), (0.0, 0.6, 0.0), (0.0, 0.8, 0.0), (0.0, 1.0, 0.0),
+    (0.0, 0.0, 0.6), (0.0, 0.0, 1.0), (0.2, 0.2, 1.0), (0.4, 0.4, 1.0),
+    (0.0, 0.4, 0.4), (0.0, 0.6, 0.6), (0.0, 0.8, 0.8), (0.0, 1.0, 1.0),
+    (0.4, 0.4, 0.0), (0.6, 0.6, 0.0), (0.8, 0.8, 0.0), (1.0, 1.0, 0.0),
+    (0.4, 0.0, 0.4), (0.6, 0.0, 0.6), (0.8, 0.0, 0.8), (1.0, 0.0, 1.0),
 )
 
 # Map from skeleton joint id to MANO pose-rotation slot (1..15);

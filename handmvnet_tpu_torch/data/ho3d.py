@@ -33,10 +33,10 @@ import torch
 from handmvnet_tpu_torch.config import DataConfig
 from handmvnet_tpu_torch.data.webdataset import ShardDataset, brace_expand, decode_field
 
-CACHE_TODO = ("data.cache_decoded is not ported: ROADMAP.md queue 1 item 2 (the decode "
-              "cache); set cache_decoded: false")
-DENOM_TODO = ("data.decode_scale_denom > 1 is not ported: ROADMAP.md queue 1 item 3 (the "
-              "downscaled decode); set decode_scale_denom: 1")
+CACHE_TODO = ("data.cache_decoded is not ported: ROADMAP.md queue 1, \"The decode cache\"; "
+              "set cache_decoded: false")
+DENOM_TODO = ("data.decode_scale_denom > 1 is not ported: ROADMAP.md queue 1, \"The "
+              "downscaled decode\"; set decode_scale_denom: 1")
 _VIEW_KEYS = ("intrinsic", "intrinsic_mat", "extrinsic", "bboxes", "cropped_bboxes",
               "joints_img", "joints_crop_img", "all_joints_cam", "all_root_joints",
               "joints_img_mask")
@@ -107,7 +107,9 @@ class MultiviewTarDataset:
     ``device`` picks the frames' form: decoded by cv2 in the reader for the
     CPU (``full_rgb`` [V, H, W, 3] uint8), JPEG bytes for a card
     (``full_jpeg``, one bytes object a view) for nvJPEG there; the reader
-    then reads raw entries and unpickles only the labels.
+    then reads raw entries and unpickles only the labels. ``split_index`` /
+    ``split_count`` pick a reader's share (``ShardDataset``); ``by_sample``
+    deals the samples out by ordinal whatever the shard count.
     """
 
     name = "ho3d"
@@ -117,7 +119,7 @@ class MultiviewTarDataset:
     test_pattern = "HO3D_mv_test-{000000..00002}.tar"
 
     def __init__(self, cfg: DataConfig, split: str, split_index: int = 0, split_count: int = 1,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", by_sample: bool = False):
         if split not in ("train", "val", "test"):
             raise ValueError(f"unknown split {split!r}")
         if cfg.cache_decoded:
@@ -132,7 +134,7 @@ class MultiviewTarDataset:
                                     shuffle_shards=train, resample=train,
                                     shuffle_buffer=500 if train else 0,
                                     split_index=split_index, split_count=split_count,
-                                    decode=self.decoded)
+                                    by_sample=by_sample, decode=self.decoded)
 
     def _split_urls(self, split: str) -> list[str]:
         train_urls = brace_expand(os.path.join(self.cfg.dataset_dir, self.train_pattern))
@@ -141,6 +143,11 @@ class MultiviewTarDataset:
         if split == "train":
             return train_urls if self.cfg.add_val_to_train else train_urls[1:-1]
         return [train_urls[0], train_urls[-1]]
+
+    def count_samples(self) -> int:
+        """The samples the split's shards hold (every reader's), counted from
+        the tar headers."""
+        return self.dataset.count_samples()
 
     def num_samples(self) -> int:
         """The split's size (``DataConfig.split_size``), which sizes its epoch."""

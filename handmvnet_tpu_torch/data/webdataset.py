@@ -6,7 +6,8 @@ key, e.g. ``000002187.image_0.jpg`` ... ``000002187.label.pyd``
 
   * brace_expand: the ``prefix-{000000..00008}.tar`` URL pattern;
   * iter_tar_samples: the grouped samples of one shard, decoded or as raw
-    bytes (the card's reader leaves the JPEGs to nvJPEG);
+    bytes (the card's reader leaves the JPEGs to nvJPEG); count_tar_samples:
+    their count;
   * ShardDataset: samples across shards, with the train pipeline's
     resampled, shuffled shard stream and reservoir shuffle, and the split of
     shards (or of samples) between readers, as the reference's pipelines set
@@ -54,6 +55,18 @@ def decode_field(name: str, payload: bytes) -> Any:
     return payload
 
 
+def count_tar_samples(path: str | Path) -> int:
+    """The sample groups of one shard (as iter_tar_samples groups them),
+    from its headers alone."""
+    keys: list[str] = []
+    with tarfile.open(str(path), "r") as tf:
+        for member in tf:
+            key = Path(member.name).name.partition(".")[0]
+            if member.isfile() and (not keys or keys[-1] != key):
+                keys.append(key)
+    return len(keys)
+
+
 def iter_tar_samples(path: str | Path, decode: bool = True) -> Iterator[dict]:
     """Yield {'__key__', '__url__', '<field>': value, ...} per sample group;
     with ``decode=False`` every value is the entry's bytes."""
@@ -87,15 +100,17 @@ class ShardDataset:
         reference ho3d.py:255 ``resampled=True``).
       shuffle_buffer: reservoir shuffle of samples (reference .shuffle(500)).
       split_index / split_count: this reader's slice of the shards, or of the
-        samples when readers outnumber shards (never with ``resample``).
+        samples (every split_count-th, from split_index) when readers
+        outnumber shards or with ``by_sample`` (never with ``resample``).
+      by_sample: split by sample whatever the counts.
       seed: epoch-stable RNG seed.
       decode: decode each entry (``decode_field``), or yield raw bytes.
     """
 
     def __init__(self, urls: Iterable[str], preprocess: Callable[[dict], Any] | None = None,
                  shuffle_shards: bool = False, resample: bool = False, shuffle_buffer: int = 0,
-                 split_index: int = 0, split_count: int = 1, seed: int = 42,
-                 decode: bool = True):
+                 split_index: int = 0, split_count: int = 1, by_sample: bool = False,
+                 seed: int = 42, decode: bool = True):
         self.urls = list(urls)
         self.preprocess = preprocess
         self.shuffle_shards = shuffle_shards
@@ -103,16 +118,22 @@ class ShardDataset:
         self.shuffle_buffer = shuffle_buffer
         self.split_index = split_index
         self.split_count = split_count
+        self.by_sample = by_sample
         self.seed = seed
         self.decode = decode
         self._epoch = 0
 
     @property
     def _sample_split(self) -> bool:
-        """More readers than shards, not resampled: split by sample ordinal,
-        so that no two readers see the same sample (decided from the counts
-        alone, so that every reader decides alike)."""
-        return not self.resample and self.split_count > max(len(self.urls), 1)
+        """More readers than shards (or ``by_sample``), not resampled: split
+        by sample ordinal, so that no two readers see the same sample
+        (decided from the counts alone, so that every reader decides alike)."""
+        return not self.resample and (self.by_sample
+                                      or self.split_count > max(len(self.urls), 1))
+
+    def count_samples(self) -> int:
+        """The samples of every shard (all readers'), from the tar headers."""
+        return sum(count_tar_samples(url) for url in self.urls)
 
     def _shards_for_epoch(self, rng: np.random.Generator) -> list[str]:
         if self._sample_split:  # every reader walks the shards in one order
@@ -137,12 +158,16 @@ class ShardDataset:
 
         ordinal = 0
         for shard in self._shards_for_epoch(rng):
-            for sample in iter_tar_samples(shard, decode=self.decode):
+            # decoded after the split, so that no reader decodes another's samples
+            for sample in iter_tar_samples(shard, decode=False):
                 if sample_split:
                     mine = ordinal % self.split_count == self.split_index
                     ordinal += 1
                     if not mine:
                         continue
+                if self.decode:
+                    sample = {k: v if k.startswith("__") else decode_field(k, v)
+                              for k, v in sample.items()}
                 if self.shuffle_buffer > 1:
                     buffer.append(sample)
                     if len(buffer) >= self.shuffle_buffer:

@@ -1,8 +1,8 @@
 """Training and evaluation engine (counterpart of handmvnet_tpu/engine.py):
 the reference's per-batch metrics as one device computation, the labels in
 meters, the MANO vertex map, a metric averager that keeps its sums on the
-device, the JSONL logger, the best-on-val_mpjpe + last checkpoint manager
-and the evaluation pass. TensorBoard logging is not ported yet.
+device, the JSONL logger with its TensorBoard scalars, the
+best-on-val_mpjpe + last checkpoint manager and the evaluation pass.
 
 Over the ranks of a process group (parallel/) every rank evaluates its own
 batches and all of them get the metrics of the union of the ranks' batches,
@@ -145,18 +145,47 @@ class DeviceMetricAverager:
 
 class JsonlLogger:
     """Append-only metrics log, one JSON object per line, echoed to stdout
-    (list values, such as PCK curves, only into the file)."""
+    with ``echo`` (list values, such as PCK curves, only into the file); with
+    ``tensorboard_dir``, each record's numbers but the epoch also as
+    TensorBoard scalars at step ``epoch`` (the reference logs through
+    Lightning to TensorBoard), flushed after each record. Without the
+    tensorboard package it warns once and logs the file alone, as the JAX
+    logger does (handmvnet_tpu/engine.py:154-190)."""
 
-    def __init__(self, path: str | Path):
+    def __init__(self, path: str | Path, echo: bool = True,
+                 tensorboard_dir: str | Path | None = None):
         self.path = Path(path)
         self.path.parent.mkdir(parents=True, exist_ok=True)
+        self.echo = echo
+        self._tb = None
+        if tensorboard_dir is not None:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+            except ImportError as e:
+                print(f"[warning] tensorboard unavailable: {e}", flush=True)
+            else:
+                self._tb = SummaryWriter(str(tensorboard_dir))
 
     def log(self, record: Mapping[str, Any]) -> None:
+        rec = {k: v for k, v in record.items() if not isinstance(v, (list, tuple))}
         with open(self.path, "a", encoding="utf-8") as f:
             f.write(json.dumps(record, default=float) + "\n")
-        print(" ".join(f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
-                       for k, v in record.items() if not isinstance(v, (list, tuple))),
-              flush=True)
+        if self._tb is not None:
+            step = int(record.get("epoch", record.get("step", 0)))
+            for k, v in rec.items():
+                if isinstance(v, (int, float)) and k not in ("epoch", "step"):
+                    self._tb.add_scalar(k, v, step)
+            self._tb.flush()
+        if self.echo:
+            print(" ".join(f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
+                           for k, v in rec.items()), flush=True)
+
+    def close(self) -> None:
+        """Close the TensorBoard writer (the JSONL file is closed after
+        each record)."""
+        if self._tb is not None:
+            self._tb.close()
+            self._tb = None
 
 
 def save_checkpoint(path: str | Path, state) -> None:

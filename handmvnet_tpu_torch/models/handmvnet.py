@@ -37,6 +37,10 @@ from handmvnet_tpu_torch.ops.geometry import box_corner_points, centered_coordin
 from handmvnet_tpu_torch.ops.heatmap import soft_argmax_2d
 
 
+INT8_TODO = ("model.backbone_int8 is not ported: ROADMAP.md queue 1, \"ops/quant.py, the int8 "
+             "PTQ behind model.backbone_int8\"; set backbone_int8: false")
+
+
 def _at_least_f32(dtype: torch.dtype) -> torch.dtype:
     return torch.promote_types(dtype, torch.float32)
 
@@ -46,7 +50,9 @@ class HandMvNet(nn.Module):
     HRNet w40 (and w64), the cross_attn fusion, root-relative output.
     ``dropout`` is the fusion blocks' rate (the reference fixes 0.1; 0
     trains without dropout). ``hrnet_branch_grouped`` is a TPU layout
-    option of the JAX package and is ignored."""
+    option of the JAX package and is ignored; so is ``backbone_int8`` on
+    HRNet, as in the JAX package, while on ResNet it raises (the int8 convs
+    are not ported)."""
 
     def __init__(self, cfg: ModelConfig, image_size: int = 256, heatmap_size: int = 32,
                  dropout: float = 0.1):
@@ -57,6 +63,8 @@ class HandMvNet(nn.Module):
         self.image_size = image_size
         self.heatmap_size = heatmap_size
         j = cfg.num_joints
+        if cfg.backbone == "resnet" and cfg.backbone_int8:
+            raise NotImplementedError(INT8_TODO)
         if cfg.backbone == "resnet" and cfg.backbone_type == "50_paper":
             channels = (1024,)
             self.backbone = ResNetBackbone(cfg.backbone_type, frozen_bn=cfg.freeze_bn)

@@ -29,12 +29,23 @@ backbone then takes the ImageNet weights at ``backbone_pretrained_path``
 (``pretrained.py``), before ``--resume``, so a restored checkpoint wins over
 the graft.
 
+Every ``vis_every_n_epochs`` epochs (make_vis_hook) it draws the 2D joints
+that the model predicts for the first sample of the epoch's last training
+batch and of a val batch on their crops, ``vis/{train,val}/joints2d_{epoch}.png``,
+and, when the g2d loss is on, the projected 3D joints,
+``projected_joints2d_{epoch}.png``; ``tb/`` holds each epoch's record as
+TensorBoard scalars.
+
 Over N devices it trains data-parallel, one process (rank) a device: under
 ``torchrun --nproc-per-node N -m handmvnet_tpu_torch.train ...`` (several
-hosts through torchrun's rendezvous), or with ``--num-devices N``, which
-starts N ranks on this host itself. Each rank takes the config's
-``batch_size`` from its own slice of the shards (``split_index=rank``,
-``split_count=N``), so an optimizer step averages N x batch_size samples:
+hosts through torchrun's rendezvous), or with N ranks that it starts on this
+host itself, N being ``--num-devices``, else the config's
+``train.num_devices``, else the host's cards (1 with ``--device cpu``), as
+the JAX trainer counts its devices (handmvnet_tpu/train.py:250; ``gpus`` is
+read by neither). One rank starts no process group. Each rank takes the
+config's ``batch_size`` from its own slice of the shards
+(``split_index=rank``, ``split_count=N``), so an optimizer step averages N x
+batch_size samples:
 the reference's DDP semantics (``gpus: 2`` in the release configs) and the
 JAX trainer's over several processes. (The JAX trainer in one process over
 N devices splits the config's batch instead; the port has one device a
@@ -44,8 +55,8 @@ loss terms and BatchNorm statistics over the ranks (train_step.py); every
 rank builds and grafts the model from the seed, then takes rank 0's
 weights, and restores ``--resume``'s checkpoint itself. Dropout folds the
 rank into its seed (seed of the step x N + rank); augmentation does not.
-Rank 0 alone writes config.json, metrics.jsonl, the checkpoints and
-val.json. A SIGTERM to any rank stops every rank at the same step
+Rank 0 alone writes config.json, metrics.jsonl, tb/, vis/, the checkpoints
+and val.json. A SIGTERM to any rank stops every rank at the same step
 (parallel.StopSignal) and checkpoints ``last``.
 """
 
@@ -79,6 +90,8 @@ from handmvnet_tpu_torch.engine import (
     restore_checkpoint,
     write_results_json,
 )
+from handmvnet_tpu_torch.ops.camera import reproject_to_views
+from handmvnet_tpu_torch.ops.geometry import joints_img_to_crop
 from handmvnet_tpu_torch.parallel import (
     StopSignal,
     broadcast_module_,
@@ -91,7 +104,7 @@ from handmvnet_tpu_torch.parallel import (
     warmup_collectives,
 )
 from handmvnet_tpu_torch.pretrained import load_pretrained_backbone
-from handmvnet_tpu_torch.train_step import build_model, create_train_state, train_step
+from handmvnet_tpu_torch.train_step import build_model, create_train_state, eval_step, train_step
 
 DATASETS = {"ho3d": HO3DDataset, "dexycb": DexYCBDataset, "mvhand": MVHandDataset}
 # a collated batch's host-only fields, which the model, losses and metrics do not read
@@ -141,18 +154,20 @@ def make_device_prepare(cfg: Config, device: str | torch.device = "cuda",
 
 def build_dataloaders(cfg: Config, device: str | torch.device = "cuda",
                       splits: tuple[str, ...] = ("val", "test"), rank: int = 0,
-                      world: int = 1) -> tuple[BatchLoader, ...]:
+                      world: int = 1, by_sample: bool = False) -> tuple[BatchLoader, ...]:
     """A loader for each split asked for, over rank ``rank``'s slice of the
-    config's shards out of ``world`` (handmvnet_tpu/train.py:93-110), in that
-    order: epochs of the split's size // (batch x world) batches (at least
-    one), the same count on every rank, each batch prepared on ``device`` by
-    the loader's preparer stage, the train split's with augmentation when
-    the config asks for it."""
+    config's shards out of ``world`` (handmvnet_tpu/train.py:93-110; with
+    ``by_sample``, of their samples, dealt out by ordinal), in that order:
+    epochs of the split's size // (batch x world) batches (at least one),
+    the same count on every rank, each batch prepared on ``device`` by the
+    loader's preparer stage, the train split's with augmentation when the
+    config asks for it."""
     ds_cls = DATASETS[cfg.data.name]
     bs = cfg.data.batch_size
     loaders = []
     for split in splits:
-        ds = ds_cls(cfg.data, split, split_index=rank, split_count=world, device=device)
+        ds = ds_cls(cfg.data, split, split_index=rank, split_count=world, device=device,
+                    by_sample=by_sample)
         augment = split == "train" and cfg.data.augment
         loaders.append(BatchLoader(ds, batch_size=bs,
                                    steps_per_epoch=max(1, ds.num_samples() // (bs * world)),
@@ -176,6 +191,89 @@ def dropout_seed(seed: int, step: int, rank: int = 0, world: int = 1) -> int:
     return (seed * 1_000_003 + step) * world + rank
 
 
+def project_crop(cfg: Config, joints_cam: torch.Tensor, batch: dict) -> torch.Tensor:
+    """Predicted root-relative joints_cam [b, 21, 3] (m) -> their projection
+    into each view's crop [b, v, 21, 2] pixels, through the batch's root
+    joint (mm), cameras and boxes (handmvnet_tpu/train.py:124-135)."""
+    projected = reproject_to_views(joints_cam + batch["root_joint"] / 1000.0, cfg.root_idx,
+                                   batch["intrinsic"], batch["extrinsic"])
+    b, v = projected.shape[:2]
+    return joints_img_to_crop(projected.reshape(b * v, -1, 2), batch["bboxes"].reshape(b * v, 4),
+                              float(cfg.data.image_size)).reshape(b, v, -1, 2)
+
+
+def vis_due(cfg: Config, epoch: int) -> bool:
+    """Whether the vis hook draws after epoch ``epoch`` (from 0)."""
+    return (epoch + 1) % max(1, cfg.train.vis_every_n_epochs) == 0
+
+
+def make_vis_hook(cfg: Config, out_dir: Path):
+    """The per-epoch visualisation hook (handmvnet_tpu/train.py:112-180; the
+    reference's handmvnet.py:425-441 and train.py:62-73 directory layout):
+    ``hook(model, batch, epoch, mode)`` on an epoch that ``vis_due``, runs
+    the eval-mode forward on the prepared batch (on the caller's stream,
+    which waits on the batch's preparation as a step does) and writes
+    vis/{mode}/joints2d_{epoch}.png, the predicted 2D joints of batch
+    element 0 on its normalised crops, and, when the g2d loss is on and the
+    batch has cameras, projected_joints2d_{epoch}.png, its predicted 3D
+    joints projected into the crops. One copy to the host a call.
+
+    Under a process group the port's forward is not collective, so rank 0
+    alone calls the hook (and builds the val batch it draws); the other
+    ranks issue nothing for it. The JAX hook runs its collective eval step
+    on every process and writes on process 0."""
+    vis_dir = out_dir / "vis"
+    for split in ("train", "val", "test"):
+        (vis_dir / split).mkdir(parents=True, exist_ok=True)
+    with_proj = cfg.train.loss_weights.g2d is not None
+
+    def hook(model, batch: dict, epoch: int, mode: str) -> None:
+        if not vis_due(cfg, epoch):
+            return
+        import cv2
+
+        from handmvnet_tpu_torch.vis.visualizer import HandPoseVisualizer
+
+        out = eval_step(model, batch)
+        panels = {f"joints2d_{epoch}.png": out["joints_crop_img"][0]}
+        if with_proj and "extrinsic" in batch:
+            with torch.inference_mode():
+                proj = project_crop(cfg, out["joints_cam"], batch)
+            panels[f"projected_joints2d_{epoch}.png"] = proj[0]
+        parts = [batch["rgb"][0].float()] + list(panels.values())
+        host = torch.cat([p.reshape(-1) for p in parts]).cpu().numpy()
+        sizes = np.cumsum([p.numel() for p in parts])[:-1]
+        rgb, *joints = (h.reshape(p.shape) for h, p in zip(np.split(host, sizes), parts))
+        for name, j in zip(panels, joints):
+            cv2.imwrite(str(vis_dir / mode / name),
+                        HandPoseVisualizer.plot_images_with_joints(rgb, j))
+
+    return hook
+
+
+def local_devices(device_type: str) -> int:
+    """This host's devices of ``device_type`` for ranks: its cards, or 1 CPU."""
+    return torch.cuda.device_count() if device_type == "cuda" else 1
+
+
+def start_local_ranks(main_fn, argv: list, ranks: int, device_type: str) -> None:
+    """``main_fn(argv)`` in ``ranks`` new rank processes of this host, one a
+    device, the kernels built once before they start."""
+    check_device_count(ranks, device_type)
+    if device_type == "cuda":
+        from handmvnet_tpu_torch.ops import _build
+
+        _build.build_all()
+    spawn_local_ranks(main_fn, (argv,), ranks)
+
+
+def rank_count(num_devices: int, cfg: Config | None, device_type: str) -> int:
+    """Ranks to start on this host: ``num_devices`` (the argument), else the
+    config's ``train.num_devices``, else every local device
+    (handmvnet_tpu/train.py:250). ``cfg`` is read only without the argument."""
+    return num_devices or cfg.train.num_devices or local_devices(device_type)
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--config", required=True)
@@ -190,23 +288,21 @@ def main(argv=None) -> None:
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--num-devices", type=int, default=0,
                         help="train data-parallel over N ranks of this host, one a device "
-                             "(not under torchrun, which starts the ranks itself)")
+                             "(default: the config's train.num_devices, else every card; "
+                             "not under torchrun, which starts the ranks itself)")
     argv = sys.argv[1:] if argv is None else list(argv)
     args = parser.parse_args(argv)
 
     device_type = torch.device(args.device).type
     if device_type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu to train on the CPU")
-    if args.num_devices and not launched():
-        check_device_count(args.num_devices, device_type)
-        if device_type == "cuda":
-            from handmvnet_tpu_torch.ops import _build
-
-            _build.build_all()  # once, before the ranks start
-        spawn_local_ranks(main, (argv,), args.num_devices)
-        return
     if not launched():
-        _train(args, torch.device(args.device))
+        cfg = None if args.num_devices else Config.from_yaml(args.config)
+        ranks = rank_count(args.num_devices, cfg, device_type)
+        if ranks == 1:
+            _train(args, torch.device(args.device))
+        else:
+            start_local_ranks(main, argv, ranks, device_type)
         return
     device, group = init_data_parallel(device_type)
     try:
@@ -230,7 +326,7 @@ def _train(args, device: torch.device, group: dist.ProcessGroup | None = None) -
     if main_rank:
         out_dir.mkdir(parents=True, exist_ok=True)
         (out_dir / "config.json").write_text(json.dumps(cfg.to_dict(), indent=2))
-        logger = JsonlLogger(out_dir / "metrics.jsonl")
+        logger = JsonlLogger(out_dir / "metrics.jsonl", tensorboard_dir=out_dir / "tb")
 
     seed = cfg.train.seed
     accum = accumulation(cfg, world)
@@ -260,6 +356,11 @@ def _train(args, device: torch.device, group: dist.ProcessGroup | None = None) -
               f"{cfg.train.compute_dtype}, device {device}", flush=True)
     vertices_fn = make_vertices_fn(cfg, str(device)) if cfg.model.get_vertices else None
     generator = torch.Generator(device)
+    vis_hook = vis_val_loader = None
+    if main_rank:
+        vis_hook = make_vis_hook(cfg, out_dir)
+        if any(vis_due(cfg, e) for e in range(start_epoch, cfg.train.epochs)):
+            import cv2  # noqa: F401 -- the hook draws with it: fail now, not at its epoch
 
     def validate():
         return evaluate(state.model, val_loader, cfg, mode="val", vertices_fn=vertices_fn,
@@ -286,6 +387,7 @@ def _train(args, device: torch.device, group: dist.ProcessGroup | None = None) -
             t0 = time.time()
             lr = state.optimizer.param_groups[0]["lr"]  # what this epoch's steps use
             avg = DeviceMetricAverager()
+            batch = None
             for batch in train_loader:
                 generator.manual_seed(dropout_seed(seed, state.step, rank, world))
                 avg.update(train_step(state, cfg, batch, generator, accum, group))
@@ -298,20 +400,35 @@ def _train(args, device: torch.device, group: dist.ProcessGroup | None = None) -
             train_metrics = avg.result()
             val_metrics = validate()
             ckpt.save(state, epoch, val_metrics.get("val_mpjpe", float("inf")))
+            if vis_hook is not None and vis_due(cfg, epoch):
+                if batch is not None:
+                    vis_hook(state.model, batch, epoch, "train")
+                # a one-shot loader of its own: drawing from val_loader would take
+                # batches from the next validation's window
+                if vis_val_loader is None:
+                    (vis_val_loader,) = build_dataloaders(cfg, device, ("val",), rank, world)
+                    vis_val_loader.steps_per_epoch = 1
+                batches = iter(vis_val_loader)
+                try:
+                    vis_hook(state.model, next(batches), epoch, "val")
+                finally:
+                    batches.close()
             log({
                 "epoch": epoch, "time_s": round(time.time() - t0, 1), "lr": lr,
                 **{f"train/{k}": v for k, v in train_metrics.items()},
                 **{k: v for k, v in val_metrics.items() if "pck" not in k},
             })
+        signal.signal(signal.SIGTERM, previous_handler)  # the fit is over
+        ckpt.restore_best(state)
+        val = validate()
+        if main_rank:
+            write_results_json(out_dir / "val.json", val)
+            print("Validation result:", {k: v for k, v in val.items() if "pck" not in k},
+                  flush=True)
     finally:
         signal.signal(signal.SIGTERM, previous_handler)
-
-    ckpt.restore_best(state)
-    val = validate()
-    if main_rank:
-        write_results_json(out_dir / "val.json", val)
-        print("Validation result:", {k: v for k, v in val.items() if "pck" not in k},
-              flush=True)
+        if logger is not None:
+            logger.close()
 
 
 if __name__ == "__main__":

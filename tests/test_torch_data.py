@@ -517,9 +517,9 @@ def test_unported_options_raise_naming_their_roadmap_item(shard_dir):
     train split and augmentation are ported."""
     cfg, _ = _data_cfgs(shard_dir)
     for split in ("train", "val", "test"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 2"):
+        with pytest.raises(NotImplementedError, match="The decode cache"):
             ho3d.HO3DDataset(dataclasses.replace(cfg, cache_decoded=True), split, device="cpu")
-        with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+        with pytest.raises(NotImplementedError, match="The downscaled decode"):
             ho3d.HO3DDataset(dataclasses.replace(cfg, decode_scale_denom=2), split, device="cpu")
     assert ho3d.HO3DDataset(cfg, "train", device="cpu").dataset.resample
     train_loader, _ = train.build_dataloaders(Config(data=cfg), "cpu", splits=("train", "val"))

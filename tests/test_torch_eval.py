@@ -11,6 +11,7 @@ from a numpy seed (tests/torch_parity.py), the joint head scaled down
 stand-in, written as an .npz.
 """
 
+import dataclasses
 import json
 
 import jax.numpy as jnp
@@ -252,3 +253,58 @@ def test_eval_main_on_the_ports_own_checkpoint(setup, evaluated, tmp_path):
     assert "val_mpvpe" not in results["val"]
     for key, value in results["val"].items():
         assert value == evaluated["port"]["val"][key], key
+
+
+# ------------------------------------------------------------------ over ranks
+
+def test_eval_main_over_two_ranks(setup, evaluated):
+    """``--num-devices 2`` on gloo CPU ranks: each rank reads 1 sample of
+    each batch of 2, the samples dealt out by ordinal (the test split's 3
+    shards do not divide over 2 ranks), and every rank gets the metrics of
+    the union. Against the one-process run: the joint metrics within rel
+    1e-6 (measured 1.2e-7; mpjpe2d exact). The vertex metrics ride on
+    joints_cam through the IK, which on these random weights turns a
+    difference of an ulp (the ranks' forwards run at batch 1 and on half the
+    threads, and round in other orders) into up to rel 9.3e-3 (val mpvpe;
+    ROADMAP.md section 3, "Explained"): they are held within
+    test_eval_main_matches_jax's limits. Against JAX: those limits."""
+    root = setup["root"]
+    (root / "ranks").mkdir()
+    torch.save({"state_dict": {f"model.{k}": v for k, v in _legacy(setup["state"]).items()}},
+               root / "ranks" / "ref.ckpt")
+    results = port_eval.main(["--config", str(setup["cfg_path"]), "--batch-size", str(BATCH),
+                              "--checkpoint", str(root / "ranks" / "ref.ckpt"),
+                              "--device", "cpu", "--num-devices", "2"])
+    for split in ("val", "test"):
+        ours, one, ref = results[split], evaluated["port"][split], evaluated["jax"][split]
+        assert ours == json.loads((root / "ranks" / f"{split}.json").read_text())[0]
+        assert set(ours) == set(one) == set(ref)
+        for key, value in one.items():
+            metric = key.removeprefix(f"{split}_")
+            atol, rtol = EVAL_TOL.get(metric, SHARE_TOL)
+            if "mpvpe" in metric or metric.endswith("_v"):
+                np.testing.assert_allclose(ours[key], value, atol=atol, rtol=rtol, err_msg=key)
+            else:
+                np.testing.assert_allclose(ours[key], value, rtol=1e-6, atol=0, err_msg=key)
+            np.testing.assert_allclose(ours[key], ref[key], atol=atol, rtol=rtol, err_msg=key)
+
+
+def test_eval_refuses_a_split_it_cannot_deal_out(setup):
+    """A split whose shards hold fewer samples than a pass reads: one
+    process starts its stream again and scores samples twice, which ranks
+    cannot repeat, so eval.py over ranks refuses it; the shards' own count
+    passes."""
+    from handmvnet_tpu_torch.train import build_dataloaders
+
+    cfg = setup["cfg"]
+    for test_size, ok in ((6, True), (8, False)):
+        data = dataclasses.replace(cfg.data, batch_size=1,
+                                   split_size_overrides={**SIZES, "test": test_size})
+        (loader,) = build_dataloaders(dataclasses.replace(cfg, data=data), "cpu", ("test",),
+                                      rank=1, world=2, by_sample=True)
+        if ok:
+            port_eval.check_dealt_out(loader, 2)
+        else:
+            with pytest.raises(ValueError, match="cannot be dealt out over 2 ranks: its shards "
+                                                 "hold 6 samples, fewer than the 8"):
+                port_eval.check_dealt_out(loader, 2)

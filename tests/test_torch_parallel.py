@@ -295,10 +295,11 @@ def test_dropout_masks_differ_across_ranks_and_repeat():
 # ------------------------------------------------------------------ train.py over ranks
 
 
-def _tiny_config(tmp_path, shard_data) -> str:
+def _tiny_config(tmp_path, shard_data, **train_fields) -> str:
     raw = yaml.safe_load(CONFIG.read_text())
     raw["data"].update(image_size=IMAGE, heatmap_size=HEATMAP, batch_size=2, **shard_data)
     raw["model"]["selected_views"] = list(range(VIEWS))
+    raw["train"].update(train_fields)
     path = tmp_path / "tiny.yaml"
     path.write_text(yaml.safe_dump(raw, sort_keys=False))
     return str(path)
@@ -314,18 +315,23 @@ def _finite(record: dict) -> bool:
 
 def test_train_main_over_two_ranks_then_resume(tmp_path, shard_data):
     """Two ranks started as torchrun starts them (env://), 1 epoch x 2 steps
-    on the shards (augmented stream, dropout on, accumulation 2): rank 0
-    alone writes, every logged value is finite, and the ranks end the
-    epoch with bitwise equal weights and statistics. Then ``--num-devices 2
-    --resume`` (train.py starting the ranks itself) continues to epoch 1."""
+    on the shards (augmented stream, dropout on, accumulation 2, the vis
+    hook every epoch): rank 0 alone writes, vis/ and tb/ included, every
+    logged value is finite, and the ranks end the epoch with bitwise equal
+    weights and statistics. Then ``--num-devices 2 --resume`` (train.py
+    starting the ranks itself) continues to epoch 1."""
     out = tmp_path / "run"
-    argv = ["--config", _tiny_config(tmp_path, shard_data), "--steps-per-epoch", "2",
-            "--output-dir", str(out), "--device", "cpu"]
+    argv = ["--config", _tiny_config(tmp_path, shard_data, vis_every_n_epochs=1),
+            "--steps-per-epoch", "2", "--output-dir", str(out), "--device", "cpu"]
     spawn_local_ranks(train_and_record, (argv + ["--epochs", "1"], str(tmp_path)), WORLD)
     first, second = (torch.load(tmp_path / f"rank{r}.pt", weights_only=False)
                      for r in range(WORLD))
     assert second["writes"] == []
-    assert {Path(p).name for p in first["writes"]} >= {"last.pt", "metrics.jsonl", "val.json"}
+    assert {Path(p).name for p in first["writes"]} >= {
+        "last.pt", "metrics.jsonl", "val.json", "tb", "joints2d_0.png", "projected_joints2d_0.png"}
+    assert {str(out / "vis" / mode / "joints2d_0.png") for mode in ("train", "val")} <= \
+        set(first["writes"])
+    assert any((out / "tb").iterdir())
     assert first["after"].keys() == second["after"].keys()
     for key, value in first["after"].items():
         assert torch.equal(value, second["after"][key]), key

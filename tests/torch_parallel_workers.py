@@ -72,13 +72,16 @@ def step_and_evaluate(out: str) -> None:
 
 def train_and_record(argv: list, out: str) -> None:
     """train.main(argv) on this rank, recording the model's state after its
-    last optimizer step and every file write of the checkpoints, the log and
-    val.json."""
+    last optimizer step and every file write of the checkpoints, the log,
+    the TensorBoard directory, the vis hook's PNGs and val.json."""
+    import cv2
+
     from handmvnet_tpu_torch import engine, train
 
     seen: dict = {"writes": []}
     real_step, real_save = train.train_step, engine.save_checkpoint
     real_log, real_results = engine.JsonlLogger.log, train.write_results_json
+    real_logger, real_imwrite = engine.JsonlLogger.__init__, cv2.imwrite
 
     def step(state, *args, **kwargs):
         losses = real_step(state, *args, **kwargs)
@@ -97,8 +100,18 @@ def train_and_record(argv: list, out: str) -> None:
         seen["writes"].append(str(path))
         real_results(path, values)
 
+    def logger(self, path, echo=True, tensorboard_dir=None):
+        if tensorboard_dir is not None:
+            seen["writes"].append(str(tensorboard_dir))
+        real_logger(self, path, echo, tensorboard_dir)
+
+    def imwrite(path, image):
+        seen["writes"].append(str(path))
+        return real_imwrite(path, image)
+
     train.train_step, engine.save_checkpoint = step, save
     engine.JsonlLogger.log, train.write_results_json = log, results
+    engine.JsonlLogger.__init__, cv2.imwrite = logger, imwrite
     train.main(argv)
     torch.save(seen, Path(out) / f"rank{os.environ['RANK']}.pt")
 
