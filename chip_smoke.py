@@ -115,11 +115,35 @@ Phases; any failure exits nonzero and prints no result:
      tensorboard is present, and the hook's ms; eval.main through the
      env:// rendezvous at world size 1 on NCCL on phase 8's shards and
      checkpoint, every metric within rel 1e-6 of phase 8's one-process eval;
- 12. a {"kernels": [...]} line (the HR rows carry K1's launches on the HR
+ 12. the serving structure, fp32 at full width with random weights (seed
+     0): (a) export.main --device cuda --verify on the DexYCB release
+     config (ResNet-50 "paper", its 8 views, b1 x 8 x 256^2), then
+     load_bundle and 1 + 20 + 200 replays in a fresh process that imports
+     no model code, the counters set to 0 just before and read just after
+     (K1 5 launches a replay, K2 1); the replay's outputs against the live
+     infer_step on the same weights and batch (phase 5's serving limits;
+     the vertices within 2e-2 mm of the mesh stage on the replay's joints,
+     and their difference from the live step's printed), the replay's p50
+     beside the eager step's; (b) the same for a bundle exported with
+     --device cpu and loaded onto the card, 1 + 2 + 10 replays; (c) the HO3D
+     HR release config exported on the card and replayed 1 + 2 + 10 times
+     (K1 5, K2 0); (d) view parallelism:
+     a 1x1 grid through the env:// rendezvous at world size 1 on NCCL,
+     bitwise equal to the plain forward, then a 1x2 grid of two processes
+     sharing the card over gloo on the DexYCB config: each rank's K1 5 and
+     K2 1 launches (x [4, 3, 256, 256]), the gathered outputs against the
+     plain forward within JAX's view-parallel limits (heatmap 1e-5,
+     joints_crop_img 1e-2 px, joints_cam 1e-4), joints_cam bitwise equal
+     across the columns, the step's and the token all_gather's ms from
+     CUDA events (a shared-card figure, not a scaling figure); (e) infer.py
+     --view-mesh 1x1 (its steps, world size 1 on NCCL) on the HO3D release
+     config with the drawable panels; the host time that the custom ops'
+     dispatch adds to a launch (each op against its launch function);
+ 13. a {"kernels": [...]} line (the HR rows carry K1's launches on the HR
      paths, the /eval rows the launches of phase 8's eval runs, the
      /train_shards rows phase 9's, the /train_dp rows phase 10's, the
-     /infer, /vis and /eval_dp rows phase 11's), then the {"ok": true, ...}
-     line last.
+     /infer, /vis and /eval_dp rows phase 11's, the /export and /view rows
+     phase 12's), then the {"ok": true, ...} line last.
 Each phase prints its seconds.
 
 fp32 means fp32 here: TF32 is switched off for matmuls and cuDNN convs.
@@ -195,6 +219,16 @@ MESH_ATOL_MM = 2e-2
 # data-parallel training (phase 10): two ranks of the release recipe on the one
 # card, each batch 16 x 5 views at accumulation 2, 1 warmup + 3 optimizer steps
 DP_RANKS, DP_WARMUP, DP_STEPS = 2, 1, 3
+# the serving structure (phase 12): the DexYCB release model at its 8 views;
+# the bundle exported on the card replayed 20 + 200 times, as eval_fps times the
+# HR model, the others 2 + 10; JAX's own view-parallel limits against the plain
+# forward (tests/test_view_parallel.py:52-62)
+DEXYCB_CONFIG = REPO / "configs" / "release" / "DexYCB_HandMvNet.yaml"
+EXPORT_WARMUP, EXPORT_ITERS = HR_WARMUP, HR_ITERS
+CHECK_WARMUP, CHECK_ITERS = 2, 10
+VIEW_TOLS = {"heatmap": 1e-5, "joints_crop_img": 1e-2, "joints_cam": 1e-4}
+VIEW_RANKS, VIEW_WARMUP, VIEW_STEPS = 2, 3, 20
+INPUT_KEYS = ("rgb", "bboxes", "intrinsic")
 
 
 def fail(msg: str) -> None:
@@ -268,6 +302,23 @@ def plain_kernels(attention_ops, stem_ops):
         yield
     finally:
         attention_ops.fused_attention, stem_ops.stem_conv_nchw = saved
+
+
+@contextlib.contextmanager
+def world_of_one():
+    """The env:// rendezvous of one rank, as torchrun sets it, for the block."""
+    import os
+
+    from handmvnet_tpu_torch.parallel.mesh import free_port
+
+    env = {"RANK": "0", "LOCAL_RANK": "0", "WORLD_SIZE": "1", "LOCAL_WORLD_SIZE": "1",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port())}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for key in env:
+            del os.environ[key]
 
 
 def check_attention(attention_ops, dtype, gen, shapes=ATTN_SHAPES, batch=1) -> dict:
@@ -358,8 +409,8 @@ def check_attention_backward(attention_ops, dtype, gen) -> dict:
             qkv = [t.clone().requires_grad_(True) for t in base]
             out = fn(*(t.transpose(1, 2) for t in qkv), scale)
             if fn is attention_ops.fused_attention and \
-                    type(out.grad_fn).__name__ != "FusedAttentionBackward":
-                fail(f"K1's output has grad_fn {out.grad_fn}, not the port's Function")
+                    "hmv_fused_attention" not in type(out.grad_fn).__name__:
+                fail(f"K1's output has grad_fn {out.grad_fn}, not the port's op")
             out.backward(g)
             grads.append([t.grad for t in qkv])
         for name, ours, ref in zip(("dq", "dk", "dv"), *grads):
@@ -392,8 +443,8 @@ def check_stem_backward(stem_ops, dtype, gen) -> dict:
     for fn in (stem_ops.stem_conv_nchw, stem_ops.stem_conv_plain):
         weight = base.clone().requires_grad_(True)
         out = fn(x, weight)
-        if fn is stem_ops.stem_conv_nchw and type(out.grad_fn).__name__ != "StemConvBackward":
-            fail(f"K2's output has grad_fn {out.grad_fn}, not the port's Function")
+        if fn is stem_ops.stem_conv_nchw and "hmv_stem_conv" not in type(out.grad_fn).__name__:
+            fail(f"K2's output has grad_fn {out.grad_fn}, not the port's op")
         out.backward(g)
         grads.append(weight.grad)
     err = max_err(*grads)
@@ -615,18 +666,18 @@ def serve(attention_ops, stem_ops, cfg, label: str, dtype_name: str, with_vertic
     return got, out
 
 
-def compare_paths(out_k: dict, out_p: dict, label: str) -> None:
-    """The fp32 kernel path's outputs against the plain path's, PATH_TOLS:
-    absolute, as the paths differ only by the stem's and attention's
-    summation order; heatmaps (|h| < 1 here) feed soft-argmax at x1000,
-    whose coordinates are pixels of the 256^2 crop."""
+def compare_paths(out_k: dict, out_p: dict, label: str,
+                  what: str = "fp32 kernel path vs plain path") -> None:
+    """The fp32 kernel path's outputs against the plain path's (or ``what``
+    else), PATH_TOLS: absolute, as the paths differ only by the stem's and
+    attention's summation order; heatmaps (|h| < 1 here) feed soft-argmax
+    at x1000, whose coordinates are pixels of the 256^2 crop."""
     for key, tol in PATH_TOLS.items():
         err = max_err(out_k[key], out_p[key])
-        print(f"{label} fp32 kernel path vs plain path {key}: max_abs_err={err:.3e} "
-              f"(max|plain|={float(out_p[key].abs().max()):.3e}) tol={tol:.1e}", flush=True)
+        print(f"{label} {what} {key}: max_abs_err={err:.3e} "
+              f"(max|ref|={float(out_p[key].abs().max()):.3e}) tol={tol:.1e}", flush=True)
         if not err <= tol:
-            fail(f"{label}: fp32 kernel path disagrees with the plain path on {key}: "
-                 f"{err} > {tol}")
+            fail(f"{label}: {what} disagree on {key}: {err} > {tol}")
 
 
 def serve_kernel_vs_plain(attention_ops, stem_ops, cfg, label: str) -> None:
@@ -1345,21 +1396,10 @@ def dp_train_main(attention_ops, stem_ops, config: Path, out_dir: Path, one_proc
     on NCCL, one epoch on phase 9's shards (shard_train_run's launch and
     finiteness checks), the all-reduce timed with CUDA events around each
     call; ms a step against phase 9's one-process fp32 step."""
-    import os
-
-    from handmvnet_tpu_torch.parallel.mesh import free_port
-
-    env = {"RANK": "0", "LOCAL_RANK": "0", "WORLD_SIZE": "1", "LOCAL_WORLD_SIZE": "1",
-           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port())}
-    os.environ.update(env)
-    try:
-        with timed_all_reduce() as reduce_ms:
-            run = shard_train_run(attention_ops, stem_ops, config, out_dir,
-                                  "training on shards float32, world size 1 on NCCL (env://)",
-                                  ["--epochs", "1"], stem_per_step=2)
-    finally:
-        for key in env:
-            del os.environ[key]
+    with world_of_one(), timed_all_reduce() as reduce_ms:
+        run = shard_train_run(attention_ops, stem_ops, config, out_dir,
+                              "training on shards float32, world size 1 on NCCL (env://)",
+                              ["--epochs", "1"], stem_per_step=2)
     torch.cuda.synchronize()
     times = [a.elapsed_time(b) for a, b, _ in reduce_ms]
     if len(times) != run["steps"]:
@@ -1420,17 +1460,7 @@ def infer_run(attention_ops, stem_ops, argv: list, label: str, stem_per_forward:
         out_p = infer.infer_step(model, mesh_stage, batch)
     compare_paths(out, out_p, label)
 
-    device_ms, wall_ms = [], []
-    for _ in range(20):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        t0 = time.perf_counter()
-        start.record()
-        infer.infer_step(model, mesh_stage, batch)
-        end.record()
-        torch.cuda.synchronize()
-        wall_ms.append((time.perf_counter() - t0) * 1e3)
-        device_ms.append(start.elapsed_time(end))
-    step_ms = {"device_ms": float(np.median(device_ms)), "wall_ms": float(np.median(wall_ms))}
+    step_ms = step_p50_ms(lambda: infer.infer_step(model, mesh_stage, batch), 0, 20)
     print(f"{label} fp32: launches K1={got[0]} K2={got[1]}; step device_ms="
           f"{step_ms['device_ms']:.4f} wall_ms={step_ms['wall_ms']:.4f} (medians of 20); "
           f"{card_line}", flush=True)
@@ -1544,25 +1574,15 @@ def eval_nccl_run(attention_ops, stem_ops, phase8: dict, out_dir: Path) -> tuple
     (--num-devices unset; the config with train.num_devices: 1) on phase 8's
     shards and reference checkpoint: eval_run's checks, and every metric
     within rel 1e-6 of phase 8's one-process eval."""
-    import os
-
-    from handmvnet_tpu_torch.parallel.mesh import free_port
-
     out_dir.mkdir(parents=True)
     config = out_dir / "eval_nccl.yaml"
     config.write_text(re.sub(r"(?m)^train:$", "train:\n  num_devices: 1",
                              phase8["config"].read_text()))
     ckpt = out_dir / phase8["ckpt"].name
     shutil.copy(phase8["ckpt"], ckpt)
-    env = {"RANK": "0", "LOCAL_RANK": "0", "WORLD_SIZE": "1", "LOCAL_WORLD_SIZE": "1",
-           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port())}
-    os.environ.update(env)
-    try:
+    with world_of_one():
         launches, results = eval_run(attention_ops, stem_ops, config, ckpt,
                                      "ResNet, world size 1 on NCCL (env://),", 1)
-    finally:
-        for key in env:
-            del os.environ[key]
     worst = 0.0
     for mode, ref in phase8["results"].items():
         for key, value in ref.items():
@@ -1600,6 +1620,346 @@ def drivers_phase(attention_ops, stem_ops, gen, evals: dict, phase9_config: Path
     # K1 and K2 at infer's shapes (batch 1 x 5 views), for the kernel line
     rows["attn"] = check_attention(attention_ops, torch.float32, gen, TRAIN_ATTN_SHAPES, 1)
     rows["stem"] = check_stem(stem_ops, torch.float32, gen, (EVAL_VIEWS, 256, 256))
+    return rows
+
+
+def step_p50_ms(fn, warmup: int, iters: int) -> dict:
+    """Medians over ``iters`` calls (after ``warmup``) of one call waited for
+    alone, the latency of one request: "device_ms" from CUDA events around
+    it (idle gaps included), "wall_ms" on the host's clock."""
+    device_ms, wall_ms = [], []
+    for i in range(warmup + iters):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        if i >= warmup:
+            wall_ms.append((time.perf_counter() - t0) * 1e3)
+            device_ms.append(start.elapsed_time(end))
+    return {"device_ms": float(np.median(device_ms)), "wall_ms": float(np.median(wall_ms))}
+
+
+def replay_bundles(spec_path: str) -> None:
+    """Phase 12's fresh process (``python -c "import chip_smoke; ..."``):
+    each bundle of the spec loaded onto the card with export.load_bundle
+    and replayed 1 + warmup + iters times on its saved batch, the counters
+    set to 0 just before and read just after; writes the first replay's
+    outputs, the launches and the port's modules this process imported.
+    Only then is the model imported: the eager infer_step on the bundle's
+    weights (infer.prepare's, as export.main's) and batch is timed in this
+    process, in turns replay, eager, eager, replay (p50s, CUDA events)."""
+    from handmvnet_tpu_torch.export import load_bundle
+    from handmvnet_tpu_torch.ops import attention as attention_ops
+    from handmvnet_tpu_torch.ops import stem as stem_ops
+
+    spec = json.loads(Path(spec_path).read_text())
+    seen, replays = {}, {}
+    for name, item in spec["bundles"].items():
+        t0 = time.perf_counter()
+        fn, meta = load_bundle(item["dir"], "cuda")
+        load_s = time.perf_counter() - t0
+        batch = torch.load(item["batch"])
+        args = [batch[k].cuda() for k in INPUT_KEYS]
+        attention_ops.fused_attention.launches = 0
+        stem_ops.stem_conv_nchw.launches = 0
+        out = fn(*args)
+        p50 = step_p50_ms(lambda: fn(*args), *item["repeats"])["device_ms"]
+        torch.cuda.synchronize()
+        seen[name] = {"launches": (attention_ops.fused_attention.launches,
+                                   stem_ops.stem_conv_nchw.launches),
+                      "replays": 1 + sum(item["repeats"]), "p50_ms": [p50],
+                      "load_s": load_s, "exported_on": meta["device"],
+                      "devices": sorted({str(v.device) for v in out.values()})}
+        torch.save({k: v.cpu() for k, v in out.items()}, item["out"])
+        replays[name] = (fn, dict(zip(INPUT_KEYS, args)))
+    seen["modules"] = sorted(m for m in sys.modules if m.startswith("handmvnet_tpu_torch"))
+
+    from handmvnet_tpu_torch import infer
+
+    steps = {}
+    for name, item in spec["bundles"].items():
+        if item["config"] not in steps:
+            model, _, mesh_stage = infer.prepare(infer_args(Path(item["config"])), "cuda")
+            steps[item["config"]] = (model, mesh_stage)
+        (model, mesh_stage), (fn, batch) = steps[item["config"]], replays[name]
+        seen[name]["eager_p50_ms"] = [step_p50_ms(
+            lambda: infer.infer_step(model, mesh_stage, batch), *item["repeats"])["device_ms"]
+            for _ in range(2)]
+        seen[name]["p50_ms"].append(step_p50_ms(
+            lambda: fn(*(batch[k] for k in INPUT_KEYS)), *item["repeats"])["device_ms"])
+    Path(spec["result"]).write_text(json.dumps(seen))
+
+
+def infer_args(config: Path, *flags):
+    from handmvnet_tpu_torch import infer
+
+    return infer.parse_args(["--config", str(config), "--synthetic", *flags])
+
+
+def export_phase(card_line: str, tmp: Path) -> dict:
+    """Phase 12 (a)-(c): the bundles exported by export.main, replayed in a
+    fresh process (replay_bundles) and held against the live infer_step
+    on the same weights (infer.prepare's, as export.main's) and batch.
+    Returns {label: launches, p50s}; the p50s are replay_bundles'."""
+    from handmvnet_tpu_torch import export, infer
+
+    full, check = (EXPORT_WARMUP, EXPORT_ITERS), (CHECK_WARMUP, CHECK_ITERS)
+    cases = {"export": (DEXYCB_CONFIG, "cuda", 1, full),
+             "export_cpu": (DEXYCB_CONFIG, "cpu", 1, check),
+             "export_hr": (HR_CONFIG, "cuda", 0, check)}
+    spec = {"bundles": {}, "result": str(tmp / "replays.json")}
+    live = {}
+    for label, (config, device, _, repeats) in cases.items():
+        t0 = time.perf_counter()
+        export.main(["--config", str(config), "--out", str(tmp / label), "--device", device]
+                    + (["--verify"] if label == "export" else []))
+        print(f"{label}: export.main --device {device} on {config.name}: "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        if config not in live:
+            model, batch, mesh_stage = infer.prepare(infer_args(config), "cuda")
+            live[config] = {"out": infer.infer_step(model, mesh_stage, batch),
+                            "mesh_stage": mesh_stage}
+            torch.save({k: batch[k].cpu() for k in INPUT_KEYS}, tmp / f"{config.stem}.pt")
+        spec["bundles"][label] = {"dir": str(tmp / label), "batch": str(tmp / f"{config.stem}.pt"),
+                                  "out": str(tmp / f"{label}_out.pt"), "repeats": repeats,
+                                  "config": str(config)}
+    (tmp / "replays.spec.json").write_text(json.dumps(spec))
+    t0 = time.perf_counter()
+    code = "import sys, chip_smoke; chip_smoke.replay_bundles(sys.argv[1])"
+    done = subprocess.run([sys.executable, "-c", code, str(tmp / "replays.spec.json")],
+                          cwd=REPO, capture_output=True, text=True, timeout=600)
+    if done.returncode != 0:
+        fail(f"replaying the bundles in a fresh process: {done.stderr[-4000:]}")
+    seen = json.loads(Path(spec["result"]).read_text())
+    print(f"replays in a fresh process: {time.perf_counter() - t0:.1f} s; it imported "
+          f"{seen['modules']}", flush=True)
+    if any(m.startswith(("handmvnet_tpu_torch.models", "handmvnet_tpu_torch.config"))
+           for m in seen["modules"]):
+        fail(f"load_bundle imported model code: {seen['modules']}")
+
+    rows = {}
+    for label, (config, device, stem_per_forward, repeats) in cases.items():
+        got, ref = seen[label], live[config]
+        n = got["replays"]
+        if tuple(got["launches"]) != (5 * n, stem_per_forward * n) or got["devices"] != ["cuda:0"]:
+            fail(f"{label}: launches {got['launches']} in {n} replays, expected "
+                 f"({5 * n}, {stem_per_forward * n}); outputs on {got['devices']}")
+        out = torch.load(spec["bundles"][label]["out"])
+        views = out["heatmap"].shape[1]
+        shapes = {"joints_cam": (1, 21, 3), "joints_crop_img": (1, views, 21, 2),
+                  "heatmap": (1, views, 21, 32, 32), "vertices": (1, 778, 3)}
+        for key, shape in shapes.items():
+            if tuple(out[key].shape) != shape or out[key].dtype != torch.float32 or \
+                    not torch.isfinite(out[key]).all():
+                fail(f"{label}: {key} is {tuple(out[key].shape)} {out[key].dtype}, expected "
+                     f"{shape} fp32 finite")
+        compare_paths({k: v.cuda() for k, v in out.items()}, ref["out"], label,
+                      "replay vs live infer_step")
+        with torch.inference_mode():
+            same_joints = ref["mesh_stage"](out["joints_cam"].cuda() * 1000.0)
+        err = max_err(out["vertices"].cuda(), same_joints)
+        live_err = max_err(out["vertices"].cuda(), ref["out"]["vertices"])
+        print(f"{label} replay vertices: max_abs_err={err:.3e} mm against the mesh stage on the "
+              f"replay's joints (tol {MESH_ATOL_MM:.0e}), {live_err:.3e} mm against the live "
+              f"step's", flush=True)
+        if not err <= MESH_ATOL_MM:
+            fail(f"{label}: the replay's vertices differ from the mesh stage's by {err} mm")
+        replay, eager = got["p50_ms"], got["eager_p50_ms"]
+        print(f"{label} (exported on {got['exported_on']}): launches K1={got['launches'][0]} "
+              f"K2={got['launches'][1]} in {n} replays; in one process, in turns replay, eager, "
+              f"eager, replay ({repeats[0]} + {repeats[1]} each): replay p50_ms "
+              f"{replay[0]:.4f}, {replay[1]:.4f}; eager infer_step p50_ms {eager[0]:.4f}, "
+              f"{eager[1]:.4f}; load {got['load_s']:.1f} s; {card_line}", flush=True)
+        rows[label] = {"launches": tuple(got["launches"]), "replays": n,
+                       "p50_ms": min(replay), "eager_p50_ms": min(eager)}
+    return rows
+
+
+def _host_ms(fn, iters: int = 200, warmup: int = 20) -> float:
+    """The host's own time a call (perf_counter) over ``iters`` back-to-back
+    calls with no wait, the card idle at the start: 200 launches stay far
+    below the launch queue's depth, so the host never waits for the card,
+    whatever the kernel's device time."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return host_s / iters * 1e3
+
+
+def dispatch_cost(attention_ops, stem_ops, gen, card_line: str) -> dict:
+    """Host time that a custom op's dispatch adds to its kernel's launch:
+    the host's time a call (_host_ms) through the op (``fused_attention``,
+    ``stem_conv_nchw``) and through its CUDA implementation called directly
+    (``_launch``), at the main path's (168, 168) and x [8, 3, 256^2], under
+    inference_mode, in turns a b b a with the lower of the two kept."""
+    q, k, v = (torch.randn(1, 168, 8, 128, generator=gen, device="cuda").transpose(1, 2)
+               for _ in range(3))
+    x = torch.randn(8, 256, 256, 3, generator=gen, device="cuda").permute(0, 3, 1, 2)
+    weight = torch.randn(64, 3, 7, 7, generator=gen, device="cuda") * 0.05
+    scale = 128 ** -0.5
+    fns = {"K1 op": lambda: attention_ops.fused_attention(q, k, v, scale),
+           "K1 launch": lambda: attention_ops._launch(q, k, v, scale),
+           "K2 op": lambda: stem_ops.stem_conv_nchw(x, weight),
+           "K2 launch": lambda: stem_ops._launch(x, weight)}
+    ms = {name: float("inf") for name in fns}
+    with torch.inference_mode():
+        for name in list(fns) + list(reversed(fns)):
+            ms[name] = min(ms[name], _host_ms(fns[name]))
+    added = {kernel: ms[f"{kernel} op"] - ms[f"{kernel} launch"] for kernel in ("K1", "K2")}
+    per_forward = 5 * added["K1"] + added["K2"]
+    print(f"custom-op dispatch: host ms a call {', '.join(f'{n}={t:.5f}' for n, t in ms.items())}"
+          f"; the op adds K1 {added['K1'] * 1e3:.2f} us, K2 {added['K2'] * 1e3:.2f} us a call, "
+          f"{per_forward * 1e3:.2f} us a forward (5 + 1 calls); {card_line}", flush=True)
+    return {"ms": ms, "added_ms": added, "per_forward_ms": per_forward}
+
+
+def view_rank(out_dir: str) -> None:
+    """One rank of phase 12 (d)'s 1x2 grid, started by parallel.spawn_local_ranks:
+    gloo on cuda:0, which both ranks share; infer.prepare's model and batch
+    on the DexYCB config. Writes to ``<out_dir>/rank<r>.pt`` the launches of one
+    forward, the gathered outputs, the replication check, and the ms of each
+    step and of its token all_gather (CUDA events)."""
+    import torch.distributed as dist
+
+    from handmvnet_tpu_torch import infer
+    from handmvnet_tpu_torch.ops import attention as attention_ops
+    from handmvnet_tpu_torch.ops import stem as stem_ops
+    from handmvnet_tpu_torch.parallel import view_parallel as vp
+    from handmvnet_tpu_torch.parallel.mesh import TIMEOUT
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method="env://", timeout=TIMEOUT)
+    group = dist.group.WORLD
+    try:
+        model, batch, _ = infer.prepare(infer_args(DEXYCB_CONFIG), torch.device("cuda", 0))
+        args = [batch[k] for k in INPUT_KEYS]
+        mesh = vp.make_inference_mesh(1, VIEW_RANKS, group)
+        forward = vp.make_view_parallel_forward(model, mesh)
+        attention_ops.fused_attention.launches = 0
+        stem_ops.stem_conv_nchw.launches = 0
+        out = forward(*args)
+        torch.cuda.synchronize()
+        launches = (attention_ops.fused_attention.launches, stem_ops.stem_conv_nchw.launches)
+        full = vp.gather_outputs(mesh, out)
+        cols = vp.make_replication_check(model, mesh)(*args)
+        gathers, real = [], vp.gather_views
+
+        def timed(mesh_, x, dim=1):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            y = real(mesh_, x, dim)
+            end.record()
+            gathers.append((start, end, x.numel() * x.element_size()))
+            return y
+
+        vp.gather_views = timed
+        try:
+            step_ms = step_p50_ms(lambda: forward(*args), VIEW_WARMUP, VIEW_STEPS)["device_ms"]
+        finally:
+            vp.gather_views = real
+        torch.save({"launches": launches, "out": {k: v.cpu() for k, v in full.items()},
+                    "cols": cols.cpu(), "step_ms": step_ms,
+                    "gather_ms": [a.elapsed_time(b) for a, b, _ in gathers[VIEW_WARMUP:]],
+                    "gather_bytes": gathers[0][2]},
+                   Path(out_dir) / f"rank{dist.get_rank(group)}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def view_phase(attention_ops, stem_ops, card_line: str, tmp: Path) -> dict:
+    """Phase 12 (d) and (e). Returns {label: launches, ms}."""
+    import importlib.util
+    import tempfile
+
+    import torch.distributed as dist
+
+    from handmvnet_tpu_torch import infer
+    from handmvnet_tpu_torch.config import Config
+    from handmvnet_tpu_torch.parallel import (init_data_parallel, make_inference_mesh,
+                                              make_view_parallel_forward, spawn_local_ranks)
+
+    rows = {}
+    model, batch, _ = infer.prepare(infer_args(DEXYCB_CONFIG), "cuda")
+    args = [batch[k] for k in INPUT_KEYS]
+    with torch.inference_mode():
+        plain = model(*args)
+    with world_of_one():
+        device, group = init_data_parallel("cuda")
+        try:
+            mesh = make_inference_mesh(1, 1, group)
+            attention_ops.fused_attention.launches = 0
+            stem_ops.stem_conv_nchw.launches = 0
+            out = make_view_parallel_forward(model, mesh)(*args)
+            torch.cuda.synchronize()
+            got = (attention_ops.fused_attention.launches, stem_ops.stem_conv_nchw.launches)
+            unequal = [k for k in plain if not torch.equal(out[k], plain[k])]
+            print(f"view-parallel 1x1, world size 1 on NCCL (env://): launches K1={got[0]} "
+                  f"K2={got[1]}; bitwise equal to the plain forward on "
+                  f"{sorted(set(plain) - set(unequal))}", flush=True)
+            if got != (5, 1) or unequal:
+                fail(f"view-parallel 1x1: launches {got}, expected (5, 1); differs from the "
+                     f"plain forward on {unequal}")
+            rows["view_nccl"] = {"launches": got}
+
+            # (e) infer.py --view-mesh 1x1: its steps in this rank, the drawable panels
+            e_args = infer_args(CONFIG, "--view-mesh", "1x1", "--output-dir", str(tmp / "infer"))
+            d, v = infer.view_mesh_shape(e_args, Config.from_yaml(CONFIG))
+            attention_ops.fused_attention.launches = 0
+            stem_ops.stem_conv_nchw.launches = 0
+            batch_e, out_e, mesh_stage = infer.view_parallel_step(e_args, d, v, device, group)
+            torch.cuda.synchronize()
+            got = (attention_ops.fused_attention.launches, stem_ops.stem_conv_nchw.launches)
+            drawable = [n for n, lib in infer.PANELS.items() if importlib.util.find_spec(lib)]
+            paths = infer.write_panels(Path(e_args.output_dir), batch_e, out_e,
+                                       mesh_stage.mano.model.faces, drawable)
+            sizes = {p.name: p.stat().st_size for p in paths}
+            print(f"infer.py --view-mesh 1x1 (world size 1 on NCCL): launches K1={got[0]} "
+                  f"K2={got[1]}; vertices {tuple(out_e['vertices'].shape)}; panels {sizes}",
+                  flush=True)
+            if got != (5, 1) or tuple(out_e["vertices"].shape) != (1, 778, 3) or \
+                    not all(torch.isfinite(t).all() for t in out_e.values()) or \
+                    not all(sizes.values()):
+                fail(f"infer.py --view-mesh 1x1: launches {got}, outputs "
+                     f"{ {k: tuple(t.shape) for k, t in out_e.items()} }, panels {sizes}")
+            rows["infer_view"] = {"launches": got}
+        finally:
+            dist.destroy_process_group()
+
+    # the 1x2 grid: two processes sharing the card over gloo
+    with tempfile.TemporaryDirectory(dir=REPO / "build", prefix="chip_smoke_view_") as out_dir:
+        t0 = time.perf_counter()
+        spawn_local_ranks(view_rank, (out_dir,), VIEW_RANKS)
+        secs = time.perf_counter() - t0
+        ranks = [torch.load(Path(out_dir) / f"rank{r}.pt") for r in range(VIEW_RANKS)]
+    label = f"view-parallel 1x{VIEW_RANKS}, {VIEW_RANKS} ranks sharing the card over gloo"
+    for r, seen in enumerate(ranks):
+        if tuple(seen["launches"]) != (5, 1):
+            fail(f"{label}: rank {r} launches {seen['launches']}, expected (5, 1)")
+        for key, tol in VIEW_TOLS.items():
+            err = max_err(seen["out"][key].cuda(), plain[key])
+            print(f"{label}, rank {r}, {key} against the plain forward: max_abs_err={err:.3e} "
+                  f"tol={tol:.0e}", flush=True)
+            if not err <= tol:
+                fail(f"{label}: rank {r}'s {key} differs from the plain forward by {err}")
+        cols = seen["cols"]
+        if not torch.equal(cols, cols[:, :1].expand_as(cols)):
+            fail(f"{label}: rank {r}'s view columns hold different joints_cam")
+        print(f"{label}, rank {r}: launches K1={seen['launches'][0]} K2={seen['launches'][1]} "
+              f"(x [{8 // VIEW_RANKS}, 3, 256, 256]); joints_cam bitwise equal across columns; "
+              f"step p50_ms {seen['step_ms']:.4f} over {VIEW_STEPS}; token all_gather of "
+              f"{seen['gather_bytes']} bytes: median {np.median(seen['gather_ms']):.4f} ms "
+              f"(a shared-card figure, not a scaling figure); {card_line}", flush=True)
+    print(f"{label}: {secs:.1f} s in all (process start included)", flush=True)
+    rows["view"] = {"launches": tuple(ranks[0]["launches"]),
+                    "step_ms": ranks[0]["step_ms"],
+                    "gather_ms": float(np.median(ranks[0]["gather_ms"]))}
     return rows
 
 
@@ -1748,7 +2108,17 @@ def main() -> None:
                                 card_line, tmp / "drivers")
         print(f"phase 11 (drivers): {time.perf_counter() - t_phase:.1f} s", flush=True)
 
-    # 12. the record
+        # 12. the serving structure: export bundles, view parallelism, infer --view-mesh
+        t_phase = time.perf_counter()
+        (tmp / "serving").mkdir()
+        serving = export_phase(card_line, tmp / "serving")
+        serving["dispatch"] = dispatch_cost(attention_ops, stem_ops, gen, card_line)
+        serving.update(view_phase(attention_ops, stem_ops, card_line, tmp / "serving"))
+        # K2 at a view rank's shape (4 of the 8 views), for the kernel line
+        serving["stem"] = check_stem(stem_ops, torch.float32, gen, (8 // VIEW_RANKS, 256, 256))
+        print(f"phase 12 (serving structure): {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # 13. the record
     def times(t: dict) -> dict:
         return {"ms": t["kernel"]["device"], "plain_ms": t["plain"]["device"],
                 "library_ms": t["library"]["device"], "eager_ms": t["kernel"]["eager"],
@@ -1881,6 +2251,47 @@ def main() -> None:
              "(21,21) x2")))
         kernels.append(stem_record(fp32, evals["stem"][fp32], k2,
                                    (label, f"{what}: forward x [80, 3, 256, 256]")))
+    # phase 12's: the replays and the fuse stage of every view rank call K1 at the main
+    # path's shapes (its rows' times); K2 at the main path's x and at a view rank's
+    for label, key, what in (
+            ("/export", "export", "bundle exported on the card, replayed in a fresh process"),
+            ("/export_cpu", "export_cpu", "bundle exported on the CPU, replayed on the card"),
+            ("/export_hr", "export_hr", "HR bundle exported on the card, replayed")):
+        row = serving[key]
+        extra = {"step_p50_ms": row["p50_ms"], "eager_step_p50_ms": row["eager_p50_ms"],
+                 "op_dispatch_ms_per_forward": serving["dispatch"]["per_forward_ms"]}
+        replays = row["replays"]
+        if key == "export_hr":  # the HO3D HR config's 5 views: the /infer_hr rows' shapes
+            kernels.append(attention_record(
+                fp32, drivers["attn"], infer_calls, row["launches"][0],
+                (label, f"{what}, {replays} replays: (105,105) x2 + (21,84) + (21,21) x2"),
+                **extra))
+            continue
+        kernels.append(attention_record(
+            fp32, attn[fp32], ATTN_CALLS, row["launches"][0],
+            (label, f"{what}, {replays} replays: (168,168) x2 + (21,147) + (21,21) x2"),
+            **extra))
+        kernels.append(stem_record(fp32, stem[fp32], row["launches"][1],
+                                   (label, f"{what}, {replays} replays: x [8, 3, 256, 256]"),
+                                   **extra))
+    for label, key, what in (("/view", "view", f"rank 0 of a 1x{VIEW_RANKS} grid sharing the "
+                              "card over gloo, one forward"),
+                             ("/view_nccl", "view_nccl", "a 1x1 grid on NCCL, one forward"),
+                             ("/infer_view", "infer_view", "infer.py --view-mesh 1x1 (HO3D, 5 "
+                              "views), one step")):
+        row = serving[key]
+        extra = {"step_p50_ms": row["step_ms"], "all_gather_ms": row["gather_ms"]} \
+            if key == "view" else {}
+        calls = infer_calls if key == "infer_view" else ATTN_CALLS
+        rows_k1 = drivers["attn"] if key == "infer_view" else attn[fp32]
+        kernels.append(attention_record(fp32, rows_k1, calls, row["launches"][0],
+                                        (label, f"{what}: the fuse stage over every view"),
+                                        **extra))
+        stem_rows = {"view": (serving["stem"], "x [4, 3, 256, 256]"),
+                     "view_nccl": (stem[fp32], "x [8, 3, 256, 256]"),
+                     "infer_view": (drivers["stem"], "x [5, 3, 256, 256]")}[key]
+        kernels.append(stem_record(fp32, stem_rows[0], row["launches"][1],
+                                   (label, f"{what}: {stem_rows[1]}"), **extra))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the card check", flush=True)
     print(card_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -47,9 +47,10 @@ from handmvnet_tpu_torch.parallel import (
     is_main,
     launched,
     rank_and_world,
+    start_local_ranks,
     warmup_collectives,
 )
-from handmvnet_tpu_torch.train import build_dataloaders, local_devices, start_local_ranks
+from handmvnet_tpu_torch.train import build_dataloaders, local_devices
 
 
 def eval_ranks(batch_size: int, requested: int) -> int:

@@ -1,6 +1,6 @@
-"""HandMvNet forward (counterpart of handmvnet_tpu/models/handmvnet.py, stage
-"full", relative root), for inference (``.eval()``) and training
-(``.train()``: BatchNorm batch statistics, dropout in the fusion blocks):
+"""HandMvNet forward (counterpart of handmvnet_tpu/models/handmvnet.py,
+relative root), for inference (``.eval()``) and training (``.train()``:
+BatchNorm batch statistics, dropout in the fusion blocks):
 
   rgb [b, v, H, W, 3]
     -> per-view backbone over b*v images (NCHW inside): ResNet-50 "paper"
@@ -15,6 +15,9 @@
     -> ChebConv GCN decoder -> joints_cam [b, 21, 3]
 
 feat is 524 for ResNet-50 "paper" (512 + 12) and 312 for HRNet w40 (300 + 12).
+The forward splits at the token boundary, as the JAX model's ``stage`` does:
+"tokens" runs the per-view trunk, "fuse" the fusion and the decoder, "full"
+both (view-parallel inference, parallel/view_parallel.py, runs them apart).
 
 The public layout is the JAX package's; the output dict is the same, every
 entry at >= f32.
@@ -88,24 +91,44 @@ class HandMvNet(nn.Module):
         decoder = JointsDecoderGCN if cfg.use_gcn else JointsDecoderNN
         self.joints_decoder = decoder(feat_dim)
 
-    def forward(self, rgb: torch.Tensor, bboxes: torch.Tensor | None = None,
-                intrinsics: torch.Tensor | None = None,
-                generator: torch.Generator | None = None) -> dict[str, torch.Tensor]:
-        """rgb [b, v, H, W, 3]; bboxes [b, v, 4] xyxy; intrinsics [b, v, 4]
-        (fx, fy, cx, cy); ``generator`` draws the dropout masks in train mode.
-        Returns joints_cam [b, 21, 3], joints_crop_img [b, v, 21, 2] and
-        heatmap [b, v, 21, h, w]."""
-        cfg = self.cfg
-        b, v = rgb.shape[:2]
-        j = cfg.num_joints
-        x = rgb.reshape(b * v, *rgb.shape[2:]).permute(0, 3, 1, 2)  # NCHW view
+    def _fuse_decode(self, tokens_b: torch.Tensor,
+                     generator: torch.Generator | None = None) -> torch.Tensor:
+        """Cross-view fusion and joint decoder over the whole token tensor
+        [b, v*j, feat] -> joints_cam [b, j, 3] in the compute dtype."""
+        return self.joints_decoder(self.joints_late_fusion(tokens_b, generator))
 
-        feats = self.backbone(x)
+    def forward(self, x: torch.Tensor, bboxes: torch.Tensor | None = None,
+                intrinsics: torch.Tensor | None = None,
+                generator: torch.Generator | None = None,
+                stage: str = "full") -> dict[str, torch.Tensor] | torch.Tensor:
+        """x: rgb [b, v, H, W, 3]; bboxes [b, v, 4] xyxy; intrinsics [b, v, 4]
+        (fx, fy, cx, cy); ``generator`` draws the dropout masks in train mode.
+
+        ``stage`` picks the part of the forward that runs:
+          "full"   returns joints_cam [b, 21, 3], joints_crop_img
+                   [b, v, 21, 2] and heatmap [b, v, 21, h, w];
+          "tokens" runs the per-view trunk on any subset of views and returns
+                   tokens [b, v*21, feat] (compute dtype) with joints_crop_img
+                   and heatmap;
+          "fuse"   takes the whole token tensor as ``x`` and returns
+                   joints_cam [b, 21, 3] in the compute dtype.
+        The parameters are the same in every stage, so one state_dict serves
+        all three."""
+        if stage == "fuse":
+            return self._fuse_decode(x, generator)
+        if stage not in ("full", "tokens"):
+            raise ValueError(f"stage {stage!r}: full, tokens or fuse")
+        cfg = self.cfg
+        b, v = x.shape[:2]
+        j = cfg.num_joints
+        images = x.reshape(b * v, *x.shape[2:]).permute(0, 3, 1, 2)  # NCHW view
+
+        feats = self.backbone(images)
         if isinstance(feats, torch.Tensor):
             feats = [feats]
         heatmaps = self.pose_net(feats[0])  # [b*v, J, h, w]
         # the x1000 softmax overflows bf16: promote, never downcast
-        joint_coords = soft_argmax_2d(heatmaps.to(_at_least_f32(heatmaps.dtype))).to(rgb.dtype)
+        joint_coords = soft_argmax_2d(heatmaps.to(_at_least_f32(heatmaps.dtype))).to(x.dtype)
 
         # [b*v, J, C_i / 2] per map, then the encodings; one concatenation
         parts = [net(f, joint_coords) for net, f in zip(self.sample_nets, feats)]
@@ -121,15 +144,15 @@ class HandMvNet(nn.Module):
             fov = fov_angles(cc, intr[:, 0], intr[:, 1]).reshape(b * v, 1, 10)
             parts.append(fov.to(joint_coords.dtype).expand(b * v, j, 10))
         tokens = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
-
         tokens_b = tokens.reshape(b, v * j, tokens.shape[-1])
-        joints_cam = self.joints_decoder(self.joints_late_fusion(tokens_b, generator))
 
         scale = float(self.image_size) / float(self.heatmap_size)
-        out_dtype = _at_least_f32(rgb.dtype)
+        out_dtype = _at_least_f32(x.dtype)
         hs = heatmaps.shape[-2:]
-        return {
-            "joints_cam": joints_cam.to(out_dtype),
+        per_view = {
             "joints_crop_img": (joint_coords.reshape(b, v, j, 2) * scale).to(out_dtype),
             "heatmap": heatmaps.reshape(b, v, j, *hs).to(out_dtype),
         }
+        if stage == "tokens":
+            return {"tokens": tokens_b, **per_view}
+        return {"joints_cam": self._fuse_decode(tokens_b, generator).to(out_dtype), **per_view}

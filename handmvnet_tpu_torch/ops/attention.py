@@ -1,13 +1,17 @@
 """Fused attention core of the fusion blocks (counterpart of
 handmvnet_tpu/ops/pallas/attention.py).
 
-``fused_attention`` is a ``torch.autograd.Function``. Its forward launches
-the hand-written CUDA kernel (csrc/attention.cu) for CUDA tensors and
-computes ``attention_plain`` for CPU tensors. Its backward is
-``attention_backward``, PyTorch ops that mirror the JAX package's VJP
-(``_pallas_attention_bwd``): like it, they recompute the softmax from the
-saved q, k, v, since neither package has a backward kernel. Layout
-[B, H, N, D] as in the JAX package.
+The core is the custom op ``hmv::fused_attention`` (``torch.library``), so
+that ``torch.export`` keeps it as one node of a graph. Its CUDA
+implementation launches the hand-written kernel (csrc/attention.cu) or
+raises; its CPU implementation computes ``attention_plain``. Both return
+the kernel's layout, a [B, Nq, H, D] tensor seen as [B, H, Nq, D], and so
+does its fake, whose shapes and strides ``torch.export`` traces with. Its
+backward is ``attention_backward``, PyTorch ops that mirror the JAX
+package's VJP (``_pallas_attention_bwd``): like it, they recompute the
+softmax from the saved q, k, v, since neither package has a backward
+kernel. Layout [B, H, N, D] as in the JAX package. Callers use the plain
+function ``fused_attention``.
 """
 
 from __future__ import annotations
@@ -61,6 +65,13 @@ def _entry():
     return lib, fn
 
 
+def _empty_out(q: torch.Tensor) -> torch.Tensor:
+    """The output, written as [B, Nq, H, D] so that the caller's merge of
+    heads is a free view, and seen as [B, H, Nq, D]."""
+    b, h, nq, d = q.shape
+    return q.new_empty((b, nq, h, d)).transpose(1, 2)
+
+
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
     """The kernel's forward on CUDA tensors (f32 or bf16, D = 128, any
     strides with a contiguous last dim and every row starting on 16 bytes);
@@ -84,8 +95,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> 
         raise ValueError("fused_attention: the head dim must be contiguous")
 
     lib, fn = _entry()
-    # written as [B, Nq, H, D] so the caller's merge of heads is a free view
-    out = torch.empty((b, nq, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+    out = _empty_out(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -97,22 +107,34 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> 
     return out
 
 
-class FusedAttention(torch.autograd.Function):
-    """The kernel (or, on the CPU, the plain version) forward, and
-    ``attention_backward`` from the saved q, k, v."""
+# the op; its CUDA implementation is the launch
+_fused_attention_op = torch.library.custom_op(
+    "hmv::fused_attention", _launch, mutates_args=(), device_types="cuda",
+    schema="(Tensor q, Tensor k, Tensor v, float scale) -> Tensor")
 
-    @staticmethod
-    def forward(ctx, q, k, v, scale):
-        ctx.save_for_backward(q, k, v)
-        ctx.scale = scale
-        if q.device.type == "cpu":
-            return attention_plain(q, k, v, scale)
-        return _launch(q, k, v, scale)
 
-    @staticmethod
-    def backward(ctx, g):
-        q, k, v = ctx.saved_tensors
-        return (*attention_backward(q, k, v, g, ctx.scale), None)
+@_fused_attention_op.register_kernel("cpu")
+def _(q, k, v, scale):
+    return _empty_out(q).copy_(attention_plain(q, k, v, scale))
+
+
+@_fused_attention_op.register_fake
+def _(q, k, v, scale):
+    return _empty_out(q)
+
+
+def _setup_context(ctx, inputs, output):
+    q, k, v, scale = inputs
+    ctx.save_for_backward(q, k, v)
+    ctx.scale = scale
+
+
+def _backward(ctx, g):
+    q, k, v = ctx.saved_tensors
+    return (*attention_backward(q, k, v, g, ctx.scale), None)
+
+
+_fused_attention_op.register_autograd(_backward, setup_context=_setup_context)
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -120,7 +142,7 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Multi-head attention core, differentiable in q, k and v.
     q: [B, H, Nq, D]; k, v: [B, H, Nk, D] -> [B, H, Nq, D]. CPU tensors take
     ``attention_plain``; CUDA tensors launch the kernel or raise."""
-    return FusedAttention.apply(q, k, v, scale)
+    return torch.ops.hmv.fused_attention(q, k, v, float(scale))
 
 
 fused_attention.launches = 0  # forward kernel launches, for showing a run went through it

@@ -1,14 +1,17 @@
 """ResNet stem conv, 7x7 / stride 2 / pad 3, 3 -> 64 channels (counterpart of
 handmvnet_tpu/ops/pallas/stem.py).
 
-``stem_conv_nchw`` is a ``torch.autograd.Function``. Its forward launches
-the hand-written CUDA kernel (csrc/stem.cu) for CUDA tensors and computes
-``stem_conv_plain`` for CPU tensors; it is exact at every input size, odd
-ones included. Its backward takes the convolution's weight and input
-gradients from ``torch.nn.grad``: the counterpart of the gradient XLA takes
-through the JAX package's training stem, the plain ``lax.conv``, since the
-Pallas kernel has no VJP. ``stem_conv`` keeps the JAX package's NHWC input /
-HWIO kernel layout for comparison with ``stem_s2d_fused``.
+The conv is the custom op ``hmv::stem_conv`` (``torch.library``), so that
+``torch.export`` keeps it as one node of a graph. Its CUDA implementation
+launches the hand-written kernel (csrc/stem.cu) or raises; its CPU
+implementation computes ``stem_conv_plain``. Both return contiguous NCHW,
+as its fake does; the kernel is exact at every input size, odd ones
+included. Its backward takes the convolution's weight and input gradients
+from ``torch.nn.grad``: the counterpart of the gradient XLA takes through
+the JAX package's training stem, the plain ``lax.conv``, since the Pallas
+kernel has no VJP. Callers use the plain function ``stem_conv_nchw``;
+``stem_conv`` keeps the JAX package's NHWC input / HWIO kernel layout for
+comparison with ``stem_s2d_fused``.
 """
 
 from __future__ import annotations
@@ -42,6 +45,11 @@ def _entry():
     return lib, fn
 
 
+def _out_shape(x: torch.Tensor) -> tuple[int, int, int, int]:
+    n, _, h, w = x.shape
+    return n, WEIGHT_SHAPE[0], (h + 1) // 2, (w + 1) // 2
+
+
 def _launch(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     """The kernel on CUDA tensors (f32 or bf16, input and weight alike);
     raises on what it does not take."""
@@ -62,7 +70,7 @@ def _launch(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"stem_conv_nchw: input shape {tuple(x.shape)}")
 
     lib, fn = _entry()
-    out = torch.empty((n, 64, (h + 1) // 2, (w + 1) // 2), dtype=x.dtype, device=x.device)
+    out = x.new_empty(_out_shape(x))
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         code = fn(x.data_ptr(), weight.data_ptr(), out.data_ptr(), _DTYPES[x.dtype],
@@ -72,29 +80,41 @@ def _launch(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     return out
 
 
-class StemConv(torch.autograd.Function):
-    """The kernel (or, on the CPU, the plain version) forward; weight and
-    input gradients by ``torch.nn.grad``, the input's only when asked for
-    (a training image has none)."""
+# the op; its CUDA implementation is the launch
+_stem_conv_op = torch.library.custom_op(
+    "hmv::stem_conv", _launch, mutates_args=(), device_types="cuda",
+    schema="(Tensor x, Tensor weight) -> Tensor")
 
-    @staticmethod
-    def forward(ctx, x, weight):
-        ctx.save_for_backward(x, weight)
-        if x.device.type == "cpu":
-            return stem_conv_plain(x, weight)
-        return _launch(x, weight)
 
-    @staticmethod
-    def backward(ctx, g):
-        x, weight = ctx.saved_tensors
-        gx = gw = None
-        if ctx.needs_input_grad[0]:
-            gx = torch.nn.grad.conv2d_input(x.shape, weight.to(g.dtype), g,
-                                            stride=STRIDE, padding=PADDING)
-        if ctx.needs_input_grad[1]:
-            gw = torch.nn.grad.conv2d_weight(x, weight.shape, g, stride=STRIDE,
-                                             padding=PADDING).to(weight.dtype)
-        return gx, gw
+@_stem_conv_op.register_kernel("cpu")
+def _(x, weight):
+    return stem_conv_plain(x, weight).contiguous()
+
+
+@_stem_conv_op.register_fake
+def _(x, weight):
+    return x.new_empty(_out_shape(x))
+
+
+def _setup_context(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _backward(ctx, g):
+    """Weight and input gradients by ``torch.nn.grad``, the input's only
+    when asked for (a training image has none)."""
+    x, weight = ctx.saved_tensors
+    gx = gw = None
+    if ctx.needs_input_grad[0]:
+        gx = torch.nn.grad.conv2d_input(x.shape, weight.to(g.dtype), g,
+                                        stride=STRIDE, padding=PADDING)
+    if ctx.needs_input_grad[1]:
+        gw = torch.nn.grad.conv2d_weight(x, weight.shape, g, stride=STRIDE,
+                                         padding=PADDING).to(weight.dtype)
+    return gx, gw
+
+
+_stem_conv_op.register_autograd(_backward, setup_context=_setup_context)
 
 
 def stem_conv_nchw(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
@@ -102,7 +122,7 @@ def stem_conv_nchw(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     strides; weight: [64, 3, 7, 7] OIHW in x's dtype. CPU tensors take
     ``stem_conv_plain``; CUDA tensors launch the kernel (f32 or bf16) or
     raise. Returns contiguous NCHW."""
-    return StemConv.apply(x, weight)
+    return torch.ops.hmv.stem_conv(x, weight)
 
 
 stem_conv_nchw.launches = 0  # forward kernel launches, for showing a run went through it

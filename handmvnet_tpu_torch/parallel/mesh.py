@@ -174,3 +174,14 @@ def spawn_local_ranks(fn: Callable, args: tuple, ranks: int) -> None:
                            start_method="spawn")
     except (mp.ProcessRaisedException, mp.ProcessExitedException) as e:
         raise SystemExit(f"rank {e.error_index} of {ranks} failed: {e}") from e
+
+
+def start_local_ranks(main_fn, argv: list, ranks: int, device_type: str) -> None:
+    """``main_fn(argv)`` in ``ranks`` new rank processes of this host, one a
+    device, the kernels built once before they start."""
+    check_device_count(ranks, device_type)
+    if device_type == "cuda":
+        from handmvnet_tpu_torch.ops import _build
+
+        _build.build_all()
+    spawn_local_ranks(main_fn, (argv,), ranks)

@@ -95,12 +95,11 @@ from handmvnet_tpu_torch.ops.geometry import joints_img_to_crop
 from handmvnet_tpu_torch.parallel import (
     StopSignal,
     broadcast_module_,
-    check_device_count,
     init_data_parallel,
     is_main,
     launched,
     rank_and_world,
-    spawn_local_ranks,
+    start_local_ranks,
     warmup_collectives,
 )
 from handmvnet_tpu_torch.pretrained import load_pretrained_backbone
@@ -254,17 +253,6 @@ def make_vis_hook(cfg: Config, out_dir: Path):
 def local_devices(device_type: str) -> int:
     """This host's devices of ``device_type`` for ranks: its cards, or 1 CPU."""
     return torch.cuda.device_count() if device_type == "cuda" else 1
-
-
-def start_local_ranks(main_fn, argv: list, ranks: int, device_type: str) -> None:
-    """``main_fn(argv)`` in ``ranks`` new rank processes of this host, one a
-    device, the kernels built once before they start."""
-    check_device_count(ranks, device_type)
-    if device_type == "cuda":
-        from handmvnet_tpu_torch.ops import _build
-
-        _build.build_all()
-    spawn_local_ranks(main_fn, (argv,), ranks)
 
 
 def rank_count(num_devices: int, cfg: Config | None, device_type: str) -> int:

@@ -94,7 +94,7 @@ def batch_to_device(batch: Mapping[str, np.ndarray], device: str | torch.device
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in batch.items()}
 
 
-def _bf16_compute_params(model: nn.Module) -> Dict[str, torch.Tensor]:
+def bf16_compute_params(model: nn.Module) -> Dict[str, torch.Tensor]:
     """{name: parameter cast to bf16}; the BatchNorm affine ones rounded to
     bf16 and kept fp32, all of them in one flat tensor (three launches, not
     two for each of the hundreds of BatchNorm parameters)."""
@@ -115,7 +115,7 @@ def forward_loss(model: HandMvNet, cfg: Config, batch: Mapping[str, torch.Tensor
     args = (batch["rgb"], batch["bboxes"], batch["intrinsic"])
     if cfg.train.compute_dtype == "bfloat16":
         args = (args[0].to(torch.bfloat16),) + args[1:]
-        out = torch.func.functional_call(model, _bf16_compute_params(model), args,
+        out = torch.func.functional_call(model, bf16_compute_params(model), args,
                                          {"generator": generator})
     else:
         out = model(*args, generator=generator)

@@ -102,18 +102,18 @@ def bf16_case():
     ref = {k: float(v) for k, v in ref.items()}
 
     ours = {}
-    for label, compute_params in (("rounded", port_step._bf16_compute_params),
+    for label, compute_params in (("rounded", port_step.bf16_compute_params),
                                   ("unrounded", _unrounded_bf16_params)):
         model = HandMvNet(cfg.model, IMAGE, HEATMAP, dropout=0.0)
         model.load_state_dict(load_flax_variables(variables))
         state = port_step.create_train_state(model, cfg, steps_per_epoch=10)
-        saved = port_step._bf16_compute_params
-        port_step._bf16_compute_params = compute_params
+        saved = port_step.bf16_compute_params
+        port_step.bf16_compute_params = compute_params
         try:
             losses = port_step.train_step(state, cfg, port_step.batch_to_device(data, "cpu"),
                                           None, ACCUM)
         finally:
-            port_step._bf16_compute_params = saved
+            port_step.bf16_compute_params = saved
         ours[label] = {k: float(v) for k, v in losses.items()}
     return {"ref": ref, "ours": ours}
 
@@ -156,7 +156,7 @@ def test_bf16_batch_norm_matches_flax_with_bf16_affine():
         bn.bias.copy_(torch.from_numpy(shift))
     xt = torch.from_numpy(x).to(torch.bfloat16).permute(0, 3, 1, 2)
     differ = {}
-    for label, compute_params in (("rounded", port_step._bf16_compute_params),
+    for label, compute_params in (("rounded", port_step.bf16_compute_params),
                                   ("unrounded", _unrounded_bf16_params)):
         with torch.no_grad():
             y = torch.func.functional_call(bn, compute_params(bn), (xt,))
@@ -173,7 +173,7 @@ def test_bf16_compute_copy_rounds_batch_norm_affine():
     model = HandMvNet(cfg.model, IMAGE, HEATMAP)
     with torch.no_grad():
         model.backbone.bn1.weight.copy_(torch.linspace(0.5, 1.5, 64))
-    compute = port_step._bf16_compute_params(model)
+    compute = port_step.bf16_compute_params(model)
     scale = compute["backbone.bn1.weight"]
     assert scale.dtype == torch.float32 and scale.requires_grad
     assert torch.equal(scale, model.backbone.bn1.weight.detach().to(torch.bfloat16).float())

@@ -139,7 +139,7 @@ def test_attention_function_grads_match_plain(card, dtype, nq, nk):
         before = fused_attention.launches
         out = fn(*(t.transpose(1, 2) for t in qkv), 128 ** -0.5)
         if fn is fused_attention:
-            assert type(out.grad_fn).__name__ == "FusedAttentionBackward"
+            assert "hmv_fused_attention" in type(out.grad_fn).__name__
             assert fused_attention.launches == before + 1
         out.backward(grad_out)
         grads.append([t.grad for t in qkv])
@@ -161,7 +161,7 @@ def test_stem_function_weight_grad_matches_plain(card, dtype, n):
         weight = base.clone().requires_grad_(True)
         out = fn(x, weight)
         if fn is stem_conv_nchw:
-            assert type(out.grad_fn).__name__ == "StemConvBackward"
+            assert "hmv_stem_conv" in type(out.grad_fn).__name__
         out.backward(grad_out)
         grads.append(weight.grad)
     ours, ref = grads

@@ -28,7 +28,8 @@ def test_port_has_files():
     assert len(PORT_FILES) > 15
     assert all(p.exists() for p in PORT_FILES)
     parallel = {p.name for p in PORT_FILES if p.parent.name == "parallel"}
-    assert parallel == {"__init__.py", "mesh.py"}
+    assert parallel == {"__init__.py", "mesh.py", "view_parallel.py"}
+    assert ROOT / "handmvnet_tpu_torch" / "export.py" in PORT_FILES
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))

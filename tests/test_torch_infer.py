@@ -206,10 +206,12 @@ def test_infer_main_writes_the_panels(setup, tmp_path, source, capsys):
 
 
 def test_infer_refuses_view_mesh_and_orbax(setup, tmp_path):
+    """A --view-mesh whose view axis does not divide the config's views (JAX's
+    check, handmvnet_tpu/infer.py:102-116; a mesh that divides runs, see
+    tests/test_torch_view_parallel.py), and an orbax directory."""
     argv = ["--config", str(setup["cfg_path"]), "--synthetic", "--device", "cpu"]
-    with pytest.raises(NotImplementedError,
-                       match="Serving structure: the stages, view parallelism and export"):
-        infer.main(argv + ["--view-mesh", "1x2"])
+    with pytest.raises(SystemExit, match="the config's views divisible by 3 \\(got 2\\)"):
+        infer.main(argv + ["--view-mesh", "1x3"])
     (tmp_path / "orbax_dir").mkdir()
     with pytest.raises(ValueError, match="orbax"):
         infer.main(argv + ["--checkpoint", str(tmp_path / "orbax_dir")])
@@ -257,9 +259,10 @@ def test_rank_count_is_argument_then_config_then_cards(monkeypatch, arg, configu
                                                      (0, ["--num-devices", "3"], 3)])
 def test_train_main_starts_the_counted_ranks(tmp_path, monkeypatch, configured, flag, spawned):
     """One rank trains in this process with no process group; more go
-    through spawn_local_ranks (not started here)."""
+    through start_local_ranks (not started here)."""
     calls = []
-    monkeypatch.setattr(train, "spawn_local_ranks", lambda fn, args, n: calls.append(("spawn", n)))
+    monkeypatch.setattr(train, "start_local_ranks",
+                        lambda fn, argv, n, device_type: calls.append(("spawn", n)))
     monkeypatch.setattr(train, "_train", lambda args, device, group=None: calls.append(
         ("train", group)))
     raw = yaml.safe_load((ROOT / "configs" / "release" / "HO3D_HandMvNet.yaml").read_text())

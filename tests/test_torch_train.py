@@ -86,7 +86,7 @@ from handmvnet_tpu_torch.ops.heatmap import render_gaussian_heatmaps
 from handmvnet_tpu_torch.ops.resize import resize_bilinear_antialias, resize_weights
 from handmvnet_tpu_torch.ops.stem import stem_conv
 from handmvnet_tpu_torch.train_step import (
-    _bf16_compute_params,
+    bf16_compute_params,
     accumulate_grads,
     batch_to_device,
     build_model,
@@ -328,7 +328,7 @@ def test_attention_function_grads_equal_autograd_through_plain(dtype):
         out.backward(g)
         grads.append([t.grad for t in qkv])
         if fn is fused_attention:
-            assert type(out.grad_fn).__name__ == "FusedAttentionBackward"
+            assert "hmv_fused_attention" in type(out.grad_fn).__name__
     for ours, ref in zip(*grads):
         assert ours.dtype == dtype
         tol = 1e-5 if dtype == torch.float32 else 2.0 ** -6 * float(ref.float().abs().max())
@@ -349,7 +349,7 @@ def test_stem_grads_match_jax_vjp(shape):
     kt = torch.from_numpy(kernel).requires_grad_(True)
     out = stem_conv(xt, kt)
     assert type(out.grad_fn).__name__ == "PermuteBackward0"
-    assert type(out.grad_fn.next_functions[0][0]).__name__ == "StemConvBackward"
+    assert "hmv_stem_conv" in type(out.grad_fn.next_functions[0][0]).__name__
     out.backward(torch.from_numpy(g))
     assert rel_max_err(kt.grad.numpy(), ref_dk) < 1e-5
     assert rel_max_err(xt.grad.numpy(), ref_dx) < 1e-5
@@ -540,7 +540,7 @@ def test_bf16_branch_keeps_fp32_masters_statistics_and_losses():
     cfg = _cut(Config.from_yaml(CONFIG))
     cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, compute_dtype="bfloat16"))
     state = create_train_state(build_model(cfg, "cpu", seed=0), cfg, steps_per_epoch=10)
-    compute = _bf16_compute_params(state.model)
+    compute = bf16_compute_params(state.model)
     bn_affine = {n for n in compute if n.startswith(("backbone.bn1.", "pose_net.1."))}
     assert bn_affine and all(compute[n].dtype == torch.float32 for n in bn_affine)
     assert compute["backbone.conv1.weight"].dtype == torch.bfloat16

@@ -139,3 +139,39 @@ def stop_when_rank_1_asks(out: str) -> None:
         torch.save(step, Path(out) / f"rank{rank}.pt")
     finally:
         dist.destroy_process_group()
+
+
+def view_parallel_rank(out: str) -> None:
+    """One rank of tests/test_torch_view_parallel.py, from ``<out>/inputs.pt``:
+    the (D, V) grid over the gloo ranks, then for each model of ``models``
+    (config, sizes, weights) the view-parallel forward on the global batch,
+    gathered, and its replication check; for the first model also the bf16
+    forward and, where the inputs name one, the replay of a view-mesh
+    export bundle. Writes {name: outputs} to ``<out>/rank<r>.pt``."""
+    from handmvnet_tpu_torch.export import load_bundle
+    from handmvnet_tpu_torch.parallel import (gather_outputs, make_inference_mesh,
+                                              make_replication_check,
+                                              make_view_parallel_forward)
+
+    inputs = torch.load(Path(out) / "inputs.pt", weights_only=False)
+    device, group = init_data_parallel("cpu")
+    rank, _ = rank_and_world(group)
+    try:
+        mesh = make_inference_mesh(*inputs["mesh"], group)
+        seen = {}
+        for i, (name, case) in enumerate(inputs["models"].items()):
+            cfg = cut_config(Config.from_yaml(case["config"]), *case["sizes"])
+            model = HandMvNet(cfg.model, cfg.data.image_size, cfg.data.heatmap_size).eval()
+            model.load_state_dict(case["weights"])
+            batch = [torch.from_numpy(case["batch"][k]) for k in ("rgb", "bboxes", "intrinsic")]
+            seen[name] = gather_outputs(mesh, make_view_parallel_forward(model, mesh)(*batch))
+            seen[f"{name} replication"] = make_replication_check(model, mesh)(*batch)
+            if i == 0:
+                seen[f"{name} bf16"] = gather_outputs(
+                    mesh, make_view_parallel_forward(model, mesh, "bfloat16")(*batch))
+                if inputs.get("bundle"):
+                    fn, _ = load_bundle(inputs["bundle"], "cpu")
+                    seen[f"{name} bundle"] = gather_outputs(mesh, fn(*batch))
+        torch.save(seen, Path(out) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
