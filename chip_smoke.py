@@ -139,11 +139,34 @@ Phases; any failure exits nonzero and prints no result:
      --view-mesh 1x1 (its steps, world size 1 on NCCL) on the HO3D release
      config with the drawable panels; the host time that the custom ops'
      dispatch adds to a launch (each op against its launch function);
- 13. a {"kernels": [...]} line (the HR rows carry K1's launches on the HR
+ 13. the rest of the model family, fp32 at full width with random weights:
+     (a) the DexYCB release config (b1 x 8 x 256^2) with backbone_type each
+     of 18, 34, 50, 101 and 152 at early_return 3 (the transposed-conv
+     head): a short eval_fps protocol (10 + 2 x 50 steps, the mesh stage
+     included), K1 5 and K2 1 launches a forward, the p50 and the forward's
+     GFLOPs, the forward alone's device ms, ops and busy share (profiler)
+     and CUDA-graph ms, and the kernel path against the plain path (phase
+     5's serving limits); (b) the learnable-query fusion on the ResNet-50 "paper" model:
+     the same protocol with K1 0 and K2 1 launches a forward (its attention
+     is plain ops, D = 256), and the kernel path against the plain path;
+     (c) the absolute-root branch: K1 against its plain version at the
+     branch's shapes (V, V), (1, V-1) and (1, 1), at B = 1 (V = 8) and B = 8
+     (V = 5), fp32 and bf16, and its backward at B = 8; two fp32 optimizer
+     steps of the HO3D release recipe with train.root_relative off, the
+     kernel path (K1 16 and K2 2 launches a step) against the plain path
+     (phase 6's limits: loss terms rel 1e-4, the gradient norm rel 1e-3 with
+     the heatmap head scaled by 1e-3 before each step, printed without it;
+     deterministic algorithms, so every run compares the same states); a b1 x 8 serving
+     forward of the DexYCB model with root_joint (K1 8, K2 1), its p50 and
+     the kernel path against the plain path (root_joint 1e-4 m); (d)
+     StackedHourglass and StackedBisectedHourglass at their defaults, one
+     forward on the card against the CPU (no kernel; rel 1e-4 of max);
+ 14. a {"kernels": [...]} line (the HR rows carry K1's launches on the HR
      paths, the /eval rows the launches of phase 8's eval runs, the
      /train_shards rows phase 9's, the /train_dp rows phase 10's, the
      /infer, /vis and /eval_dp rows phase 11's, the /export and /view rows
-     phase 12's), then the {"ok": true, ...} line last.
+     phase 12's, the /family and /root rows phase 13's), then the
+     {"ok": true, ...} line last.
 Each phase prints its seconds.
 
 fp32 means fp32 here: TF32 is switched off for matmuls and cuDNN convs.
@@ -229,6 +252,16 @@ CHECK_WARMUP, CHECK_ITERS = 2, 10
 VIEW_TOLS = {"heatmap": 1e-5, "joints_crop_img": 1e-2, "joints_cam": 1e-4}
 VIEW_RANKS, VIEW_WARMUP, VIEW_STEPS = 2, 3, 20
 INPUT_KEYS = ("rgb", "bboxes", "intrinsic")
+# the rest of the model family (phase 13): the default ResNets on the DexYCB
+# release model at early_return 3, a short protocol each; the absolute-root
+# branch's K1 shapes at serving (b1, 8 views) and in a training microbatch
+# (batch 8, 5 views), 3 more calls a forward
+FAMILY_TYPES = ("18", "34", "50", "101", "152")
+FAMILY_WARMUP, FAMILY_ITERS = 10, 50
+ROOT_ATTN_SHAPES = ((8, 8), (1, 7), (1, 1))
+ROOT_TRAIN_ATTN_SHAPES = ((5, 5), (1, 4), (1, 1))
+ROOT_TOL_M = 1e-4  # root_joint, kernel path against plain path (as joints_cam)
+HOURGLASS_REL = 1e-4
 
 
 def fail(msg: str) -> None:
@@ -302,6 +335,19 @@ def plain_kernels(attention_ops, stem_ops):
         yield
     finally:
         attention_ops.fused_attention, stem_ops.stem_conv_nchw = saved
+
+
+@contextlib.contextmanager
+def deterministic():
+    """Deterministic algorithms for the block (an op without one raises)."""
+    saved = torch.are_deterministic_algorithms_enabled(), torch.backends.cudnn.deterministic
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(saved[0])
+        torch.backends.cudnn.deterministic = saved[1]
 
 
 @contextlib.contextmanager
@@ -392,15 +438,16 @@ def check_stem(stem_ops, dtype, gen, shape=STEM_SHAPE) -> dict:
     return {"err": err, "t": t, "bound": b, "bound_by": by}
 
 
-def check_attention_backward(attention_ops, dtype, gen) -> dict:
-    """The K1 Function's gradients at the training shapes against autograd
+def check_attention_backward(attention_ops, dtype, gen, calls=TRAIN_ATTN_CALLS) -> dict:
+    """The K1 Function's gradients at the training shapes (``calls``: each
+    (Nq, Nk) and its calls a microbatch, at batch 8) against autograd
     through the plain version, and the backward's device time per microbatch
     (attention_backward: PyTorch ops)."""
     from handmvnet_tpu_torch.profile_forward import graph_ms
 
     scale = 128 ** -0.5
     worst, ms = 0.0, 0.0
-    for nq, nk in TRAIN_ATTN_SHAPES:
+    for nq, nk in calls:
         base = [torch.randn(TRAIN_ATTN_BATCH, n, 8, 128, generator=gen, device="cuda").to(dtype)
                 for n in (nq, nk, nk)]
         g = torch.randn(TRAIN_ATTN_BATCH, 8, nq, 128, generator=gen, device="cuda").to(dtype)
@@ -424,7 +471,7 @@ def check_attention_backward(attention_ops, dtype, gen) -> dict:
             worst = max(worst, err)
         q, k, v = (t.transpose(1, 2) for t in base)
         t = graph_ms(lambda: attention_ops.attention_backward(q, k, v, g, scale), 20, 20)
-        ms += TRAIN_ATTN_CALLS[(nq, nk)] * t
+        ms += calls[(nq, nk)] * t
     print(f"   K1 backward (PyTorch ops) device ms per microbatch: {ms:.5f}", flush=True)
     return {"err": worst, "ms": ms}
 
@@ -630,12 +677,14 @@ def train_kernel_vs_plain(attention_ops, stem_ops, config: Path = CONFIG,
 
 
 def serve(attention_ops, stem_ops, cfg, label: str, dtype_name: str, with_vertices: bool,
-          stem_per_forward: int, warmup: int = WARMUP, iters: int = ITERS):
+          stem_per_forward: int, warmup: int = WARMUP, iters: int = ITERS,
+          attn_per_forward: int = 5):
     """The eval_fps protocol (b1 x v8 x 256^2, warmup + 2 x iters forwards)
     with the launch counters set to 0 just before and read just after: K1
-    must launch 5 times a forward and K2 ``stem_per_forward`` times; the
-    outputs must be fp32, finite, on the card and of the expected shapes.
-    Returns (launches, outputs of the last step)."""
+    must launch ``attn_per_forward`` times a forward and K2
+    ``stem_per_forward`` times; the outputs must be fp32, finite, on the card
+    and of the expected shapes. Returns (launches, outputs of the last step,
+    the protocol's stats)."""
     from handmvnet_tpu_torch.eval_fps import run_protocol
 
     attention_ops.fused_attention.launches = 0
@@ -644,14 +693,14 @@ def serve(attention_ops, stem_ops, cfg, label: str, dtype_name: str, with_vertic
                               device="cuda", seed=0, with_vertices=with_vertices)
     torch.cuda.synchronize()
     got = (attention_ops.fused_attention.launches, stem_ops.stem_conv_nchw.launches)
-    want = (5 * stats["forwards"], stem_per_forward * stats["forwards"])
+    want = (attn_per_forward * stats["forwards"], stem_per_forward * stats["forwards"])
     step = "forward + mesh stage" if with_vertices else "forward only (--no-vertices)"
     print(f"{label} {dtype_name} {step}: fps={stats['fps']:.2f} p50_ms={stats['p50_ms']:.4f} "
           f"mean_ms={stats['mean_ms']:.4f} forwards={stats['forwards']} "
           f"launches K1={got[0]} K2={got[1]}", flush=True)
     if got != want:
         fail(f"{label} {dtype_name} {step}: kernel launches {got}, expected {want} "
-             f"(5 and {stem_per_forward} per forward)")
+             f"({attn_per_forward} and {stem_per_forward} per forward)")
     shapes = {"joints_cam": (1, 21, 3), "joints_crop_img": (1, 8, 21, 2),
               "heatmap": (1, 8, 21, 32, 32)}
     if with_vertices:
@@ -663,16 +712,20 @@ def serve(attention_ops, stem_ops, cfg, label: str, dtype_name: str, with_vertic
             fail(f"{label} {dtype_name}: {key} is {tuple(out[key].shape)} {out[key].dtype}")
         if out[key].device.type != "cuda" or not torch.isfinite(out[key]).all():
             fail(f"{label} {dtype_name}: {key} is not finite on the card ({out[key].device})")
-    return got, out
+    return got, out, stats
 
 
 def compare_paths(out_k: dict, out_p: dict, label: str,
-                  what: str = "fp32 kernel path vs plain path") -> None:
+                  what: str = "fp32 kernel path vs plain path", tols: dict = PATH_TOLS,
+                  relative: tuple = ()) -> None:
     """The fp32 kernel path's outputs against the plain path's (or ``what``
     else), PATH_TOLS: absolute, as the paths differ only by the stem's and
     attention's summation order; heatmaps (|h| < 1 here) feed soft-argmax
-    at x1000, whose coordinates are pixels of the 256^2 crop."""
-    for key, tol in PATH_TOLS.items():
+    at x1000, whose coordinates are pixels of the 256^2 crop. The keys in
+    ``relative`` are judged at their tolerance times max(1, max|ref|)."""
+    for key, tol in tols.items():
+        if key in relative:
+            tol *= max(1.0, float(out_p[key].abs().max()))
         err = max_err(out_k[key], out_p[key])
         print(f"{label} {what} {key}: max_abs_err={err:.3e} "
               f"(max|ref|={float(out_p[key].abs().max()):.3e}) tol={tol:.1e}", flush=True)
@@ -680,8 +733,10 @@ def compare_paths(out_k: dict, out_p: dict, label: str,
             fail(f"{label}: {what} disagree on {key}: {err} > {tol}")
 
 
-def serve_kernel_vs_plain(attention_ops, stem_ops, cfg, label: str) -> None:
-    """The fp32 kernel path against the plain path on the card, same weights."""
+def serve_kernel_vs_plain(attention_ops, stem_ops, cfg, label: str,
+                          relative: tuple = ()) -> None:
+    """The fp32 kernel path against the plain path on the card, same weights
+    (``relative``: compare_paths')."""
     from handmvnet_tpu_torch.eval_fps import protocol_step
 
     step = protocol_step(cfg, views=8, dtype=torch.float32, device="cuda", seed=0)
@@ -689,7 +744,7 @@ def serve_kernel_vs_plain(attention_ops, stem_ops, cfg, label: str) -> None:
         out_k = step()
         with plain_kernels(attention_ops, stem_ops):
             out_p = step()
-    compare_paths(out_k, out_p, label)
+    compare_paths(out_k, out_p, label, relative=relative)
     # The kernels end before the mesh stage, so joints_cam decides this
     # comparison. The vertices are printed, not judged: the random-weight
     # model's joints lie within ~0.02 mm of each other, where the IK turns a
@@ -1963,6 +2018,284 @@ def view_phase(attention_ops, stem_ops, card_line: str, tmp: Path) -> dict:
     return rows
 
 
+def family_config(config: Path = DEXYCB_CONFIG, **model):
+    """A release config with its model fields replaced (``model``) and, with
+    ``root_relative``, its train.root_relative."""
+    from handmvnet_tpu_torch.config import Config
+
+    cfg = Config.from_yaml(config)
+    root_relative = model.pop("root_relative", cfg.train.root_relative)
+    return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, **model),
+                               train=dataclasses.replace(cfg.train, root_relative=root_relative))
+
+
+def card_gflops(model, inputs) -> float:
+    """GFLOPs of one forward on the card, as torch's flop counter sees the
+    convolutions and matmuls, with K1's and K2's work (custom ops, which it
+    does not know) counted from their shapes."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    def attention_flops(q, k, v, scale, *, out_shape=None, **kwargs) -> int:
+        b, h, nq, d = q
+        return 4 * b * h * nq * k[2] * d  # q k^T and p v
+
+    def stem_flops(x, weight, *, out_shape=None, **kwargs) -> int:
+        return 2 * math.prod(out_shape) * math.prod(weight[1:])
+
+    mapping = {torch.ops.hmv.fused_attention: attention_flops,
+               torch.ops.hmv.stem_conv: stem_flops}
+    with torch.inference_mode(), FlopCounterMode(display=False, custom_mapping=mapping) as c:
+        model(*inputs)
+    return c.get_total_flops() / 1e9
+
+
+def family_serving(attention_ops, stem_ops, card_line: str) -> dict:
+    """Phase 13 (a) and (b): the default ResNets at early_return 3 and the
+    learnable-query fusion on the DexYCB release model, each a short
+    eval_fps protocol with its launches checked, its p50 and GFLOPs, and the
+    kernel path against the plain path."""
+    from handmvnet_tpu_torch.eval_fps import build_model, model_inputs
+    from handmvnet_tpu_torch.profile_forward import profile_calls
+
+    cases = {f"resnet{t}": ({"backbone_type": t, "backbone_early_return": 3}, 5)
+             for t in FAMILY_TYPES}
+    cases["learnable_query"] = ({"fusion": "cross_attn_learnable_query"}, 0)
+    rows = {}
+    for name, (fields, k1) in cases.items():
+        cfg = family_config(**fields)
+        launches, _, stats = serve(attention_ops, stem_ops, cfg, f"family {name}", "float32",
+                                   True, stem_per_forward=1, warmup=FAMILY_WARMUP,
+                                   iters=FAMILY_ITERS, attn_per_forward=k1)
+        model = build_model(cfg, 8, 256, "cuda")
+        inputs = model_inputs(8, 256, "cuda", torch.float32)
+        gflops = card_gflops(model, inputs)
+        # the forward alone: device time and ops (profiler), busy share, CUDA-graph replay
+        prof = profile_calls(lambda: model(*inputs), warmup=3, iters=20, profiled=5, top=3)
+        print(f"family {name}: p50_ms={stats['p50_ms']:.4f} forward_gflops={gflops:.3f}; "
+              f"forward alone: wall_p50_ms={prof['wall_p50_ms']:.3f} device_ms="
+              f"{prof['device_ms']:.3f} device_ops={prof['device_ops_per_forward']:.0f} "
+              f"busy={prof['busy']:.2f} graph_ms={prof['graph_ms']:.3f} "
+              f"TFLOP/s={gflops / prof['device_ms']:.2f} ({card_line})", flush=True)
+        del model
+        # The learnable-query blocks have no LayerNorm, so on random weights (the
+        # N(0, 1) probe, five residual blocks) joints_cam reaches ~340 m: judged
+        # relative to its largest value, as fp32's rounding scales with it
+        serve_kernel_vs_plain(attention_ops, stem_ops, cfg, f"family {name}",
+                              relative=("joints_cam",) if k1 == 0 else ())
+        rows[name] = {"launches": launches, "p50_ms": stats["p50_ms"], "gflops": gflops,
+                      "forwards": stats["forwards"], "forward_device_ms": prof["device_ms"]}
+        torch.cuda.empty_cache()
+    return rows
+
+
+def root_train_kernel_vs_plain(attention_ops, stem_ops) -> dict:
+    """Phase 13 (c): two fp32 optimizer steps (accumulation 2) of the HO3D
+    release recipe with train.root_relative off, dropout 0. Each step runs
+    on the kernel path and, from a copy of the same state (weights, AdamW
+    moments, BN statistics), on the plain path: phase 6's limits on that
+    step's loss terms and gradient norm; the kernel path's update carries
+    on. (Two trajectories would part after the first step: Adam's first
+    update is ~lr sign(g), so a leaf whose gradient is ~0 moves by +-lr on
+    either path.) The kernel path's launches are counted from 0: K1 16 and
+    K2 2 a step.
+
+    Phase 6's scaled-head rule judges the gradient norm only where the x1000
+    soft-argmax is not saturated, so the judged run scales the heatmap
+    head's last conv by 1e-3 before every step, not only the first: AdamW's
+    first update moves each of its weights by ~lr = 1e-4, several times
+    their scaled size and all along the gradient, and saturates the
+    soft-argmax again. From such a state the two paths' fp32 roundings (the
+    kernel path's the larger, K2 being 3xTF32) part the gradient norms by
+    up to rel ~1e-3. The judged run prints, not judged, each step's mean
+    peak probability of the soft-argmax before and after the rescale, and
+    both paths' gradient norms against the plain path's in float64 from the
+    same state. The comparison runs under deterministic algorithms:
+    otherwise the first step's atomics flip the sign of near-zero
+    gradients, each flip moves a weight by 2 lr, and every run judges its
+    second step at another state.
+
+    Every view sits at the root camera's pose, as in train_kernel_vs_plain,
+    and the root decoder's last layer is scaled by 1e-2 with its bias at the
+    batch's mean root, so that the predicted root, which the reprojection
+    adds to the joints, lies in front of the cameras as a trained model's
+    does (tests/test_torch_root.py does the same)."""
+    import copy
+
+    from handmvnet_tpu_torch.data.synthetic import synthetic_batch
+    from handmvnet_tpu_torch.train import accumulation
+    from handmvnet_tpu_torch.train_step import (
+        accumulate_grads, batch_to_device, build_model, create_train_state, forward_loss,
+        optimizer_step)
+
+    base = train_config("float32")
+    cfg = dataclasses.replace(base, train=dataclasses.replace(base.train, root_relative=False))
+    accum = accumulation(cfg)
+    data = synthetic_batch(TRAIN_BATCH, TRAIN_VIEWS, cfg.data.image_size, cfg.data.heatmap_size,
+                           seed=1)
+    data["extrinsic"][:] = np.eye(4, dtype=np.float32)
+    batch = batch_to_device(data, "cuda")
+    mean_root = torch.from_numpy(data["root_joint"].mean(axis=(0, 1)) / 1000.0).cuda()
+    steps, bad, launches = 2, [], (0, 0)
+    for head_scale in (1.0, 1e-3):
+        model = build_model(cfg, "cuda", seed=1, dropout=0.0)
+        with torch.no_grad():
+            model.root_decoder.joints_fc2.weight.mul_(1e-2)
+            model.root_decoder.joints_fc2.bias.copy_(mean_root)
+        state = create_train_state(model, cfg, 1000)
+        label = f"root training fp32, kernel path vs plain path, head x{head_scale:g}"
+        launches = (0, 0)
+        judged = head_scale != 1.0
+
+        def peak() -> float:
+            # the first microbatch on a copy (train mode moves BN statistics)
+            micro = {k: v[:TRAIN_BATCH // accum] for k, v in batch.items()}
+            with torch.no_grad():
+                hm = forward_loss(copy.deepcopy(model).train(), cfg, micro)[1]["heatmap"]
+            return float(torch.softmax(hm.flatten(-2) * 1000.0, -1).amax(-1).mean())
+
+        for i in range(steps):
+            before = peak() if judged else None
+            with torch.no_grad():
+                for p in model.pose_net[-1].parameters():
+                    p.mul_(head_scale)
+            plain_state = copy.deepcopy(state)
+            if judged:
+                f64 = copy.deepcopy(state)
+                f64.model.double()
+                with plain_kernels(attention_ops, stem_ops):
+                    accumulate_grads(f64, cfg, {k: v.double() if v.is_floating_point() else v
+                                                for k, v in batch.items()}, None, accum)
+                n64 = float(torch.linalg.vector_norm(torch.stack(
+                    [torch.linalg.vector_norm(p.grad) for p in f64.model.parameters()
+                     if p.grad is not None])))
+                del f64
+                after = peak()
+            attention_ops.fused_attention.launches = 0
+            stem_ops.stem_conv_nchw.launches = 0
+            lk = {k: float(v) for k, v in accumulate_grads(state, cfg, batch, None, accum).items()}
+            nk = float(optimizer_step(state, cfg))
+            torch.cuda.synchronize()
+            launches = (launches[0] + attention_ops.fused_attention.launches,
+                        launches[1] + stem_ops.stem_conv_nchw.launches)
+            with plain_kernels(attention_ops, stem_ops):
+                lp = {k: float(v) for k, v in
+                      accumulate_grads(plain_state, cfg, batch, None, accum).items()}
+                np_ = float(optimizer_step(plain_state, cfg))
+            del plain_state
+            if "root_3d_loss" not in lp:
+                fail(f"{label}: no root_3d_loss in {sorted(lp)}")
+            for key in lp:
+                rel = abs(lk[key] - lp[key]) / abs(lp[key])
+                print(f"{label}, step {i}, {key}: {lk[key]:.6f} vs {lp[key]:.6f} "
+                      f"rel={rel:.3e} tol=1e-4", flush=True)
+                if not (math.isfinite(lk[key]) and rel <= 1e-4):
+                    bad.append(f"head x{head_scale:g} step {i} {key} rel {rel}")
+            rel = abs(nk - np_) / np_
+            print(f"{label}, step {i}, gradient norm: {nk:.6e} vs {np_:.6e} rel={rel:.3e} "
+                  + ("tol=1e-3" if judged else "not judged"), flush=True)
+            if judged:
+                print(f"   soft-argmax mean peak {before:.4f} before the rescale, {after:.4f} "
+                      f"after; gradient norm against float64 plain {n64:.6e}: kernel path "
+                      f"rel={abs(nk - n64) / n64:.3e}, plain path rel={abs(np_ - n64) / n64:.3e}"
+                      " (not judged)", flush=True)
+                if not rel <= 1e-3:
+                    bad.append(f"head x{head_scale:g} step {i} gradient norm rel {rel}")
+        print(f"{label}: launches K1={launches[0]} K2={launches[1]} in {steps} steps", flush=True)
+        if launches != (16 * steps, 2 * steps):
+            fail(f"{label}: kernel launches {launches}, expected {(16 * steps, 2 * steps)} "
+                 "(16 and 2 per optimizer step)")
+    if bad:
+        fail(f"root training: the kernel path disagrees with the plain path: {bad}")
+    return {"launches": launches, "steps": steps}
+
+
+def root_serving(attention_ops, stem_ops, card_line: str) -> dict:
+    """Phase 13 (c): the DexYCB release model with the absolute-root branch,
+    b1 x 8 x 256^2, random weights: FAMILY_WARMUP + FAMILY_ITERS forwards
+    with the counters set to 0 just before and read just after (K1 8, K2 1
+    a forward), root_joint [1, 1, 3] fp32 and finite, the p50 on CUDA
+    events, and the kernel path against the plain path."""
+    from handmvnet_tpu_torch.eval_fps import model_inputs, random_state_dict
+    from handmvnet_tpu_torch.models import HandMvNet
+
+    cfg = family_config(root_relative=False)
+    model = HandMvNet(cfg.model, image_size=256, heatmap_size=32, root_relative=False)
+    model.load_state_dict(random_state_dict(model, 0))
+    model = model.eval().cuda()
+    inputs = model_inputs(8, 256, "cuda", torch.float32)
+    with torch.inference_mode():
+        for _ in range(FAMILY_WARMUP):
+            model(*inputs)
+        torch.cuda.synchronize()
+        attention_ops.fused_attention.launches = 0
+        stem_ops.stem_conv_nchw.launches = 0
+        lat = []
+        for _ in range(FAMILY_ITERS):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = model(*inputs)
+            end.record()
+            end.synchronize()
+            lat.append(start.elapsed_time(end))
+        launches = (attention_ops.fused_attention.launches, stem_ops.stem_conv_nchw.launches)
+        with plain_kernels(attention_ops, stem_ops):
+            out_p = model(*inputs)
+    p50 = float(np.percentile(lat, 50))
+    print(f"root serving fp32 b1 x 8: p50_ms={p50:.4f} forwards={FAMILY_ITERS} launches "
+          f"K1={launches[0]} K2={launches[1]} ({card_line})", flush=True)
+    if launches != (8 * FAMILY_ITERS, FAMILY_ITERS):
+        fail(f"root serving: kernel launches {launches}, expected "
+             f"{(8 * FAMILY_ITERS, FAMILY_ITERS)} (8 and 1 per forward)")
+    root = out["root_joint"]
+    if tuple(root.shape) != (1, 1, 3) or root.dtype != torch.float32 or \
+            not torch.isfinite(root).all():
+        fail(f"root serving: root_joint {tuple(root.shape)} {root.dtype} not finite fp32")
+    compare_paths(out, out_p, "root serving", tols={**PATH_TOLS, "root_joint": ROOT_TOL_M})
+    return {"launches": launches, "p50_ms": p50, "forwards": FAMILY_ITERS}
+
+
+def hourglass_check() -> None:
+    """Phase 13 (d): the dormant hourglass backbones at their defaults (4
+    stacks of 256 channels, depth 4), one forward of one 256^2 image on the
+    card against the same module on the CPU (fp32; no kernel of the port)."""
+    from handmvnet_tpu_torch.models.backbones.hourglass import (
+        StackedBisectedHourglass, StackedHourglass)
+
+    x = torch.randn(1, 3, 256, 256, generator=torch.Generator().manual_seed(0))
+    for cls in (StackedHourglass, StackedBisectedHourglass):
+        torch.manual_seed(0)
+        model = cls().eval()
+        with torch.inference_mode():
+            ref = model(x)
+            got = model.cuda()(x.cuda())
+        torch.cuda.synchronize()
+        for i, (g, r) in enumerate(zip(got, ref)):
+            err, top = max_err(g.cpu(), r), float(r.abs().max())
+            print(f"{cls.__name__} output {i} {tuple(g.shape)}: card vs CPU max_abs_err="
+                  f"{err:.3e} (max|cpu|={top:.3e}) tol={HOURGLASS_REL:.0e} x max", flush=True)
+            if g.device.type != "cuda" or not err <= HOURGLASS_REL * top:
+                fail(f"{cls.__name__} output {i}: card and CPU disagree, {err} > "
+                     f"{HOURGLASS_REL} x {top}")
+        del model
+    torch.cuda.empty_cache()
+
+
+def family_phase(attention_ops, stem_ops, gen, card_line: str) -> dict:
+    """Phase 13: the rest of the model family (see the module docstring)."""
+    out = {"serving": family_serving(attention_ops, stem_ops, card_line)}
+    out["root_attn"] = {d: check_attention(attention_ops, d, gen, ROOT_ATTN_SHAPES, 1)
+                        for d in DTYPES.values()}
+    out["root_train_attn"] = {d: check_attention(attention_ops, d, gen, ROOT_TRAIN_ATTN_SHAPES,
+                                                 TRAIN_ATTN_BATCH) for d in DTYPES.values()}
+    out["root_attn_bwd"] = {d: check_attention_backward(
+        attention_ops, d, gen, {s: 1 for s in ROOT_TRAIN_ATTN_SHAPES}) for d in DTYPES.values()}
+    with deterministic():
+        out["root_train"] = root_train_kernel_vs_plain(attention_ops, stem_ops)
+    out["root_serving"] = root_serving(attention_ops, stem_ops, card_line)
+    hourglass_check()
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: chip_smoke.py runs the port on an NVIDIA GPU only")
@@ -2017,8 +2350,8 @@ def main() -> None:
     launches, joints_cam = {}, {}
     for name, dtype in DTYPES.items():
         for with_vertices in (True, False):
-            got, out = serve(attention_ops, stem_ops, cfg, "main path", name, with_vertices,
-                             stem_per_forward=1)
+            got, out, _ = serve(attention_ops, stem_ops, cfg, "main path", name, with_vertices,
+                                stem_per_forward=1)
             if with_vertices:
                 launches[dtype] = got
                 joints_cam[name] = out["joints_cam"]
@@ -2118,7 +2451,13 @@ def main() -> None:
         serving["stem"] = check_stem(stem_ops, torch.float32, gen, (8 // VIEW_RANKS, 256, 256))
         print(f"phase 12 (serving structure): {time.perf_counter() - t_phase:.1f} s", flush=True)
 
-    # 13. the record
+    # 13. the rest of the model family: the default ResNets, the learnable-query
+    # fusion, the absolute-root branch, the hourglasses
+    t_phase = time.perf_counter()
+    family = family_phase(attention_ops, stem_ops, gen, card_line)
+    print(f"phase 13 (model family): {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # 14. the record
     def times(t: dict) -> dict:
         return {"ms": t["kernel"]["device"], "plain_ms": t["plain"]["device"],
                 "library_ms": t["library"]["device"], "eager_ms": t["kernel"]["eager"],
@@ -2292,6 +2631,53 @@ def main() -> None:
                      "infer_view": (drivers["stem"], "x [5, 3, 256, 256]")}[key]
         kernels.append(stem_record(fp32, stem_rows[0], row["launches"][1],
                                    (label, f"{what}: {stem_rows[1]}"), **extra))
+    # phase 13's: the family's forwards call K1 and K2 at the main path's shapes (its
+    # rows' times); the root branch adds its three calls at serving and in training
+    fam = family["serving"]
+    fam_k1 = sum(r["launches"][0] for r in fam.values())
+    fam_k2 = sum(r["launches"][1] for r in fam.values())
+    by_type = {name: {"launches": r["launches"], "forwards": r["forwards"],
+                      "p50_ms": r["p50_ms"], "forward_gflops": r["gflops"],
+                      "forward_device_ms": r["forward_device_ms"]}
+               for name, r in fam.items()}
+    kernels.append(attention_record(
+        fp32, attn[fp32], ATTN_CALLS, fam_k1,
+        ("/family", "ResNet 18/34/50/101/152 at early_return 3 on the DexYCB model: "
+         "(168,168) x2 + (21,147) + (21,21) x2 a forward (none on the learnable-query "
+         "fusion)"), by_model=by_type))
+    kernels.append(stem_record(fp32, stem[fp32], fam_k2,
+                               ("/family", "every family model: x [8, 3, 256, 256]"),
+                               by_model=by_type))
+    root_calls = {**ATTN_CALLS, **{s: 1 for s in ROOT_ATTN_SHAPES}}
+    root_rows = {**attn[fp32], **family["root_attn"][fp32]}
+    rs = family["root_serving"]
+    kernels.append(attention_record(
+        fp32, root_rows, root_calls, rs["launches"][0],
+        ("/root", "absolute-root DexYCB model b1 x 8: the main path's 5 calls + (8,8) + (1,7) "
+         "+ (1,1)"), step_p50_ms=rs["p50_ms"],
+        bf16_max_abs_err=max(r["err"] for r in family["root_attn"][torch.bfloat16].values())))
+    kernels.append(stem_record(fp32, stem[fp32], rs["launches"][1],
+                               ("/root", "absolute-root DexYCB model: x [8, 3, 256, 256]"),
+                               step_p50_ms=rs["p50_ms"]))
+    root_train_calls = {**TRAIN_ATTN_CALLS, **{s: 1 for s in ROOT_TRAIN_ATTN_SHAPES}}
+    root_train_rows = {**train_attn[fp32], **family["root_train_attn"][fp32]}
+    rt = family["root_train"]
+    kernels.append(attention_record(
+        fp32, root_train_rows, root_train_calls, rt["launches"][0],
+        ("/root_train", f"root_relative off, HO3D release recipe, {rt['steps']} steps: "
+         "microbatch forward at batch 8: (105,105) x2 + (21,84) + (21,21) x2 + (5,5) + (1,4) "
+         "+ (1,1)"),
+        backward="PyTorch ops (ops/attention.py::attention_backward)",
+        backward_ms=attn_bwd[fp32]["ms"] + family["root_attn_bwd"][fp32]["ms"],
+        backward_max_abs_err=max(attn_bwd[fp32]["err"], family["root_attn_bwd"][fp32]["err"]),
+        bf16_max_abs_err=max(r["err"] for r in
+                             family["root_train_attn"][torch.bfloat16].values())))
+    kernels.append(stem_record(
+        fp32, train_stem[fp32], rt["launches"][1],
+        ("/root_train", f"root_relative off, {rt['steps']} steps: microbatch forward "
+         "x [40, 3, 256, 256]"),
+        backward="torch.nn.grad.conv2d_weight", backward_ms=stem_bwd[fp32]["ms"],
+        backward_max_abs_err=stem_bwd[fp32]["err"]))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the card check", flush=True)
     print(card_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

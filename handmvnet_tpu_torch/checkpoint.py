@@ -12,16 +12,20 @@ handmvnet_tpu/checkpoint.py:
 
   flax                                   port (torch)
   conv kernel    [kh, kw, I, O]   ->  weight [O, I, kh, kw]
+  ConvTranspose kernel [kh, kw, O, I] (transpose_kernel)
+                                  ->  weight [I, O, kh, kw] (the same permutation)
   Dense kernel   [I, O]           ->  weight [O, I]
   BN/LN scale    [C]              ->  weight [C]
   batch_stats mean / var          ->  running_mean / running_var
   ChebConv weight [K+1, 1, I, O]  ->  weight (unchanged)
-  bias                            ->  bias (unchanged)
+  bias, probe, pe, A_hat          ->  unchanged
 
 and module names lose every trailing ``_N`` to ``.N`` (``layer1_0`` ->
 ``layer1.0``, ``fuse_layers_2_0_1_0`` -> ``fuse_layers.2.0.1.0``), the
-inverse of the JAX converter's merge of every numeric segment. The port's
-state_dict keys are the reference's torch keys.
+inverse of the JAX converter's merge of every numeric segment. The hourglass
+wrappers' levels come back too (``FLAT_SPLITS``, the inverse of the JAX
+converter's ``_FLAT_JOINS``). The port's state_dict keys are the reference's
+torch keys.
 """
 
 from __future__ import annotations
@@ -39,6 +43,15 @@ LEGACY_REMAPS = (
     (re.compile(r"^pose_net\.conv\."), "pose_net."),
     (re.compile(r"^sample_net\."), "sample_nets.0."),
 )
+# the hourglass wrappers' levels that the flax tree leaves out: a Residual's
+# ConvBlocks (flax conv1_conv -> conv1.conv) and a Merge's ConvBlock (flax
+# merge_preds_0/conv -> merge_preds.0.conv.conv)
+FLAT_SPLITS = (
+    (re.compile(r"(^|\.)(conv1|conv2|conv3|skip_layer)_conv(?=\.|$)"), r"\1\2.conv"),
+    (re.compile(r"(^|\.)(merge_preds|merge_features)\.(\d+)\.conv(?=\.|$)"), r"\1\2.\3.conv.conv"),
+)
+# flax parameters that keep their name and layout
+_PLAIN_PARAMS = ("bias", "weight", "probe", "pe", "A_hat")
 # the keys of a file that engine.save_checkpoint writes
 _PORT_CHECKPOINT_KEYS = {"model", "optimizer", "scheduler", "step"}
 
@@ -102,7 +115,10 @@ def _torch_path(path: tuple[str, ...]) -> str:
             seg, index = m.groups()
             indices.insert(0, index)
         segs.extend([seg, *indices])
-    return ".".join(segs)
+    path_str = ".".join(segs)
+    for pat, repl in FLAT_SPLITS:
+        path_str = pat.sub(repl, path_str)
+    return path_str
 
 
 def _leaves(tree: Mapping, prefix: tuple[str, ...] = ()):
@@ -116,13 +132,14 @@ def _leaves(tree: Mapping, prefix: tuple[str, ...] = ()):
 def _convert_param(leaf: str, v: np.ndarray) -> tuple[str, np.ndarray]:
     if leaf == "kernel":
         if v.ndim == 4:
-            return "weight", np.transpose(v, (3, 2, 0, 1))  # HWIO -> OIHW
+            # HWIO -> OIHW; a ConvTranspose's [kh, kw, O, I] -> torch's [I, O, kh, kw]
+            return "weight", np.transpose(v, (3, 2, 0, 1))
         if v.ndim == 2:
             return "weight", np.transpose(v, (1, 0))  # [in, out] -> [out, in]
         raise ValueError(f"kernel of rank {v.ndim}")
     if leaf == "scale":
         return "weight", v
-    if leaf in ("bias", "weight"):  # ChebConv weight keeps its layout
+    if leaf in _PLAIN_PARAMS:  # ChebConv's weight keeps its layout too
         return leaf, v
     raise ValueError(f"unknown flax parameter {leaf!r}")
 
@@ -134,23 +151,24 @@ def load_flax_variables(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]
     and flax has no counterpart of."""
     state: dict[str, torch.Tensor] = {}
 
-    def put(key: str, value: np.ndarray) -> None:
+    def put(module: str, name: str, value: np.ndarray) -> None:
+        key = f"{module}.{name}" if module else name  # a leaf of the root module has no prefix
         if key in state:
             raise ValueError(f"two flax leaves map to {key}")
-        state[key] = torch.from_numpy(np.ascontiguousarray(value))
+        state[key] = torch.from_numpy(np.array(value, order="C"))  # a copy; 0-d stays 0-d
 
     unknown = set(variables) - {"params", "batch_stats"}
     if unknown:
         raise ValueError(f"unknown variable collections {sorted(unknown)}")
     for path, value in _leaves(variables.get("params", {})):
         leaf, arr = _convert_param(path[-1], np.asarray(value))
-        put(f"{_torch_path(path[:-1])}.{leaf}", arr)
+        put(_torch_path(path[:-1]), leaf, arr)
     for path, value in _leaves(variables.get("batch_stats", {})):
         names = {"mean": "running_mean", "var": "running_var"}
         if path[-1] not in names:
             raise ValueError(f"unknown batch statistic {path[-1]!r}")
         module = _torch_path(path[:-1])
-        put(f"{module}.{names[path[-1]]}", np.asarray(value))
+        put(module, names[path[-1]], np.asarray(value))
         if path[-1] == "mean":
-            put(f"{module}.num_batches_tracked", np.zeros((), np.int64))
+            put(module, "num_batches_tracked", np.zeros((), np.int64))
     return state

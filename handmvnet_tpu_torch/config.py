@@ -249,6 +249,22 @@ class Config:
         return dataclasses.asdict(self)
 
 
+def refuse_absolute_root(cfg: Config, driver: str) -> None:
+    """The drivers' refusal of ``train.root_relative: false``. The JAX
+    package's train.py, eval.py and infer.py build HandMvNet without
+    root_relative, so that config runs the root-relative model there and
+    fails on the missing ``root_joint``. The port's model and train step
+    serve and train the absolute-root model; its drivers refuse the config
+    rather than port the crash or wire what the JAX drivers do not."""
+    if not cfg.train.root_relative:
+        raise ValueError(
+            f"{driver}: train.root_relative: false is refused. The JAX package's {driver} "
+            "builds HandMvNet without root_relative and fails on the missing root_joint; "
+            "the absolute-root model is served and trained through "
+            "HandMvNet(root_relative=False) and train_step, not through the drivers "
+            "(ROADMAP.md queue 3, declared divergences)")
+
+
 def _build(cls, raw: Mapping[str, Any], fill_missing_none: Sequence[str] = ()):
     """Construct a dataclass from a raw dict, ignoring unknown keys and
     turning lists into tuples. Keys in fill_missing_none default to None

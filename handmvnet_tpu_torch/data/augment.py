@@ -1,5 +1,5 @@
-"""Photometric augmentation of the train split on the device (counterpart of
-handmvnet_tpu/data/augment.py:1-199).
+"""Photometric augmentation of the train split on the device, and the
+dormant square-box jitter (counterpart of handmvnet_tpu/data/augment.py).
 
 The reference augments each sample on the CPU with PIL/cv2
 (src/datasets/augment.py:132-152): ColorJitter(brightness .2, saturation
@@ -18,7 +18,9 @@ float32 in [0, 1] on their device:
   * ``apply_augmentation``: the chain of ``augment_image``, deterministic
     given the draws, op for op as the JAX functions compute it.
 The random streams differ from jax.random's; the distributions are the
-same. ``augment_batch`` composes the two.
+same. ``augment_batch`` composes the two. ``jitter_square_boxes`` (which no
+config turns on) is split the same way: ``draw_box_jitter`` and
+``apply_box_jitter``.
 """
 
 from __future__ import annotations
@@ -208,3 +210,33 @@ def augment_batch(images: torch.Tensor, generator: torch.Generator,
     [N] raster/crop magnifications."""
     draws = draw_augmentation(images.shape[0], generator, images.device)
     return apply_augmentation(images, draws, crop_scales)
+
+
+def draw_box_jitter(shape: tuple[int, ...], generator: torch.Generator,
+                    device: str | torch.device, max_shift: float = 10.0,
+                    max_scale: float = 0.1) -> dict[str, torch.Tensor]:
+    """The draws of ``jitter_square_boxes`` for boxes of ``shape`` [..., 4]:
+    a centre shift [..., 2] in U[-max_shift, max_shift] px and a side
+    factor [...] in U[1 - max_scale, 1 + max_scale]."""
+    batch = tuple(shape[:-1])
+    shift = torch.rand(*batch, 2, generator=generator, device=device) * (2 * max_shift) - max_shift
+    scale = 1.0 + (torch.rand(*batch, generator=generator, device=device) * (2 * max_scale)
+                   - max_scale)
+    return {"shift": shift, "scale": scale}
+
+
+def apply_box_jitter(boxes: torch.Tensor, draws: dict[str, torch.Tensor]) -> torch.Tensor:
+    """Shift the centre of square xyxy boxes [..., 4] and scale their side
+    by the draws, keeping them square."""
+    center = (boxes[..., 0:2] + boxes[..., 2:4]) * 0.5 + draws["shift"]
+    half = (boxes[..., 2] - boxes[..., 0]) * draws["scale"] * 0.5
+    return torch.cat([center - half[..., None], center + half[..., None]], dim=-1)
+
+
+def jitter_square_boxes(boxes: torch.Tensor, generator: torch.Generator,
+                        max_shift: float = 10.0, max_scale: float = 0.1) -> torch.Tensor:
+    """Randomly shift and scale square xyxy boxes [..., 4], keeping them
+    square: the reference's dormant bbox-jitter augmentation, drawn from
+    ``generator`` (on the boxes' device)."""
+    draws = draw_box_jitter(boxes.shape, generator, boxes.device, max_shift, max_scale)
+    return apply_box_jitter(boxes, draws)

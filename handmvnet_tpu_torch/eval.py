@@ -38,7 +38,7 @@ import torch
 import torch.distributed as dist
 
 from handmvnet_tpu_torch.checkpoint import load_torch_checkpoint
-from handmvnet_tpu_torch.config import Config
+from handmvnet_tpu_torch.config import Config, refuse_absolute_root
 from handmvnet_tpu_torch.data.loader import BatchLoader
 from handmvnet_tpu_torch.engine import evaluate, make_vertices_fn, write_results_json
 from handmvnet_tpu_torch.eval_fps import build_model
@@ -130,6 +130,7 @@ def _evaluate(args, device: torch.device, group: dist.ProcessGroup | None = None
     main_rank = is_main(group)
 
     cfg = Config.from_yaml(args.config)
+    refuse_absolute_root(cfg, "eval.py")
     cfg = dataclasses.replace(cfg, data=dataclasses.replace(
         cfg.data, batch_size=args.batch_size // world))
     ckpt_path = Path(args.checkpoint)

@@ -34,7 +34,7 @@ import torch
 import torch.distributed as dist
 
 from handmvnet_tpu_torch.checkpoint import load_torch_checkpoint
-from handmvnet_tpu_torch.config import Config
+from handmvnet_tpu_torch.config import Config, refuse_absolute_root
 from handmvnet_tpu_torch.data.synthetic import synthetic_batch
 from handmvnet_tpu_torch.eval_fps import build_model
 from handmvnet_tpu_torch.models.joints_to_vertices import joints_to_vertices_fn
@@ -95,6 +95,7 @@ def prepare(args: argparse.Namespace, device: torch.device | None = None
     torch.backends.cudnn.allow_tf32 = False
 
     cfg = Config.from_yaml(args.config)
+    refuse_absolute_root(cfg, "infer.py")
     cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data,
                                                             batch_size=args.batch_size))
     model = build_model(cfg, views=cfg.model.num_views, image_size=cfg.data.image_size,

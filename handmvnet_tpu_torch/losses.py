@@ -61,14 +61,17 @@ def handmvnet_loss(
     weights: LossWeights,
     *,
     mask_invisible_joints: bool = True,
+    root_relative: bool = True,
     intrinsics: torch.Tensor | None = None,
     extrinsics: torch.Tensor | None = None,
     root_idx: int = 0,
     image_size: float = 256.0,
 ) -> Dict[str, torch.Tensor]:
-    """Each loss term and their sum ``loss``, for the root-relative model
-    (the only one the port has). ``inputs`` holds the labels, 3D ones in
-    metres (the caller divides the mm labels by 1000)."""
+    """Each loss term and their sum ``loss``. ``inputs`` holds the labels,
+    3D ones in metres (the caller divides the mm labels by 1000). With
+    ``root_relative`` off the model's ``root_joint`` is held to the label's
+    (``root_3d_loss``) and the reprojection adds it in place of the
+    label's."""
     losses: Dict[str, torch.Tensor] = {}
     losses["heatmap_loss"] = mse_loss(out["heatmap"], inputs["heatmap"], weights.heatmap)
 
@@ -80,6 +83,9 @@ def handmvnet_loss(
     losses["joints_2d_loss"] = l1_loss(pred2d, gt2d, weights.joints_2d)
     losses["joints_3d_loss"] = l1_loss(out["joints_cam"], inputs["joints_cam"],
                                        weights.joints_3d)
+    if not root_relative:
+        losses["root_3d_loss"] = l1_loss(out["root_joint"], inputs["root_joint"],
+                                         weights.joints_3d)
 
     if weights.g2d is not None:
         # fail loudly, as the reference does: a silent zero-weight term would
@@ -90,7 +96,8 @@ def handmvnet_loss(
         if intrinsics is None or extrinsics is None:
             raise ValueError("the g2d/p2d reprojection losses need camera "
                              "intrinsics and extrinsics")
-        projected = reproject_to_views(out["joints_cam"] + inputs["root_joint"], root_idx,
+        root = inputs["root_joint"] if root_relative else out["root_joint"]
+        projected = reproject_to_views(out["joints_cam"] + root, root_idx,
                                        intrinsics, extrinsics)  # [B, V, 21, 2]
         b, v = projected.shape[:2]
         proj_crop = joints_img_to_crop(

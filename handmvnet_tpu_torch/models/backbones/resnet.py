@@ -1,14 +1,25 @@
-"""ResNet-50 "paper" backbone, NCHW (counterpart of
-handmvnet_tpu/models/backbones/resnet.py).
+"""ResNet backbones, NCHW (counterpart of
+handmvnet_tpu/models/backbones/resnet.py), in every layout of the JAX
+package: 18 and 34 (BasicBlock), 50, 101 and 152 (Bottleneck), and the
+"50_paper" variant.
 
-torchvision's bottleneck topology with layer3 at stride 1 and no layer4: a
-[B, 3, H, W] image gives one [B, 1024, H/8, W/8] map. The stem conv goes
-through ``ops.stem.stem_conv_nchw`` (the K2 kernel on the card) at every
-batch shape, in training too. The other convolutions are plain large
-products and stay ``F.conv2d``, as the JAX package left them to XLA. With
-``frozen_bn`` every BatchNorm of the backbone reads its running statistics
-in train mode as well (the config's ``freeze_bn``); its scale and shift
-still train. ``BasicBlock`` is the block of HRNet's branches (hrnet.py).
+  * "default" (every type without "paper"): torchvision's topology, four
+    stages, layer2 to layer4 at stride 2. It returns a dict of the maps
+    ``res_layer1`` .. ``res_layer4`` and ``res_layer4_mean`` ([B, C], the
+    mean over H and W, computed before the early-return check as in the
+    JAX package); ``early_return`` in 1-4 returns after that stage, 0 runs
+    all four.
+  * "paper": layer3 at stride 1 and no layer4, so a [B, 3, H, W] image gives
+    one [B, 1024, H/8, W/8] map; ``early_return`` is ignored.
+
+The stem conv goes through ``ops.stem.stem_conv_nchw`` (the K2 kernel on
+the card) in every layout and at every batch shape, in training too. The
+other convolutions are plain large products and stay ``F.conv2d``, as the
+JAX package left them to XLA. With ``frozen_bn`` every BatchNorm of the
+backbone reads its running statistics in train mode as well (the config's
+``freeze_bn``); its scale and shift still train. ``BasicBlock`` is also the
+block of HRNet's branches (hrnet.py). Module names are torchvision's, so an
+ImageNet state_dict grafts by key (pretrained.py).
 """
 
 from __future__ import annotations
@@ -20,7 +31,16 @@ from torch import nn
 from handmvnet_tpu_torch.models.layers import batch_norm
 from handmvnet_tpu_torch.ops import stem as stem_ops
 
-_LAYOUTS = {"50_paper": (3, 4, 6)}  # bottleneck blocks of layer1..3
+# block kind and blocks of layer1..4 (the paper variant stops after layer3)
+LAYOUTS = {
+    "18": ("basic", (2, 2, 2, 2)),
+    "34": ("basic", (3, 4, 6, 3)),
+    "50": ("bottleneck", (3, 4, 6, 3)),
+    "50_paper": ("bottleneck", (3, 4, 6, 3)),
+    "101": ("bottleneck", (3, 4, 23, 3)),
+    "152": ("bottleneck", (3, 8, 36, 3)),
+}
+_STAGE_PLANES = (64, 128, 256, 512)
 
 
 class StemConv(nn.Module):
@@ -37,8 +57,12 @@ class StemConv(nn.Module):
 
 
 class BasicBlock(nn.Module):
-    """Two 3x3 conv + BN with a residual; HRNet's branches chain four at
-    stride 1 and equal width, so they have no ``downsample``."""
+    """Two 3x3 conv + BN with a residual. A stage's first block, where the
+    stride or the width changes, adds the 1x1 conv + BN ``downsample`` to
+    its residual (HRNet's branches chain four at stride 1 and equal width,
+    so theirs have none)."""
+
+    expansion = 1
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1):
         super().__init__()
@@ -85,24 +109,48 @@ class Bottleneck(nn.Module):
         return F.relu(out + residual)
 
 
-class ResNetBackbone(nn.Module):
-    """[B, 3, H, W] -> [B, 1024, H/8, W/8] for version "50_paper"."""
+def deepest_side(paper: bool, stages: int, size: int) -> int:
+    """The side of the last of ``stages`` maps for a ``size``-sided image:
+    the stem and the max pool halve it (rounding up), and so does every stage
+    past the first but the paper variant's layer3."""
+    side = -(-size // 4)
+    for stage in range(1, stages):
+        if not (paper and stage == 2):
+            side = -(-side // 2)
+    return side
 
-    def __init__(self, version: str = "50_paper", frozen_bn: bool = False):
+
+class ResNetBackbone(nn.Module):
+    """[B, 3, H, W] -> one [B, 1024, H/8, W/8] map ("50_paper"), or the dict
+    of the default variant's maps up to ``early_return`` (see the module's
+    docstring)."""
+
+    def __init__(self, version: str = "50_paper", frozen_bn: bool = False,
+                 early_return: int = 3):
         super().__init__()
-        if version not in _LAYOUTS:
+        if version not in LAYOUTS:
             raise ValueError(f"unsupported ResNet version {version!r} "
-                             f"(the port has {sorted(_LAYOUTS)})")
+                             f"(the port has {sorted(LAYOUTS)})")
+        self.paper = "paper" in version
         self.frozen_bn = frozen_bn
+        kind, blocks = LAYOUTS[version]
+        block_cls = BasicBlock if kind == "basic" else Bottleneck
         self.conv1 = StemConv()
         self.bn1 = batch_norm(64)
         inplanes = 64
-        for stage, (planes, blocks) in enumerate(zip((64, 128, 256), _LAYOUTS[version])):
-            stride = 2 if stage == 1 else 1  # the paper variant keeps layer3 at stride 1
+        # stages past the early return are not built (the JAX module never
+        # creates them, so its tree has no weights for them)
+        self.stages = 3 if self.paper else early_return if 1 <= early_return <= 4 else 4
+        # the channels of each stage's map
+        self.channels = tuple(p * block_cls.expansion for p in _STAGE_PLANES[:self.stages])
+        for stage in range(self.stages):
+            planes = _STAGE_PLANES[stage]
+            # the paper variant keeps layer3 at stride 1
+            stride = 1 if stage == 0 or (self.paper and stage == 2) else 2
             layer = []
-            for bidx in range(blocks):
-                layer.append(Bottleneck(inplanes, planes, stride if bidx == 0 else 1))
-                inplanes = planes * Bottleneck.expansion
+            for bidx in range(blocks[stage]):
+                layer.append(block_cls(inplanes, planes, stride if bidx == 0 else 1))
+                inplanes = planes * block_cls.expansion
             setattr(self, f"layer{stage + 1}", nn.Sequential(*layer))
         self.train()  # modules start in train mode: freeze the BNs from the start
 
@@ -114,7 +162,13 @@ class ResNetBackbone(nn.Module):
                     m.eval()
         return self
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor) -> torch.Tensor | dict[str, torch.Tensor]:
         h = F.relu(self.bn1(self.conv1(x)))
         h = F.max_pool2d(h, kernel_size=3, stride=2, padding=1)
-        return self.layer3(self.layer2(self.layer1(h)))
+        features: dict[str, torch.Tensor] = {}
+        for stage in range(self.stages):
+            h = getattr(self, f"layer{stage + 1}")(h)
+            features[f"res_layer{stage + 1}"] = h
+            if stage == 3:
+                features["res_layer4_mean"] = h.mean(dim=(2, 3))
+        return h if self.paper else features

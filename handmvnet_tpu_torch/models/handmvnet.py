@@ -1,23 +1,35 @@
-"""HandMvNet forward (counterpart of handmvnet_tpu/models/handmvnet.py,
-relative root), for inference (``.eval()``) and training (``.train()``:
-BatchNorm batch statistics, dropout in the fusion blocks):
+"""HandMvNet forward (counterpart of handmvnet_tpu/models/handmvnet.py),
+for inference (``.eval()``) and training (``.train()``: BatchNorm batch
+statistics, dropout in the fusion blocks):
 
   rgb [b, v, H, W, 3]
     -> per-view backbone over b*v images (NCHW inside): ResNet-50 "paper"
-       (one map, 1024 ch at H/8) or HRNet w40/w64 (four maps, H/4..H/32)
+       (one map, 1024 ch at H/8), a default ResNet 18/34/50/101/152 (the maps
+       of layer1 up to its early_return, deepest first) or HRNet w40/w64
+       (four maps, H/4..H/32)
     -> pose_net head on the first map -> heatmaps [b*v, 21, H/8, W/8]
-       (ResNet: 1x1 conv, BN, ReLU, 1x1 conv; HRNet: one 3x3 stride-2 conv)
+       ("paper": 1x1 conv, BN, ReLU, 1x1 conv; a default ResNet: a 4x4
+       stride-2 transposed conv to 128, BN, ReLU, 3x3 conv to 64, BN, ReLU,
+       3x3 conv; HRNet: one 3x3 stride-2 conv)
     -> soft-argmax at temperature 1000, in >= f32 -> coords [b*v, 21, 2]
     -> one SampleNet per map, halving its channels, sampled at the same
        H/8-space coordinates on every map (the reference's cross-scale
        quirk, kept), concatenated (+ coords, + crop-FoV angles)
-    -> tokens [b, v*21, feat] -> CrossAttentionFusion -> [b, 21, feat]
-    -> ChebConv GCN decoder -> joints_cam [b, 21, 3]
+    -> tokens [b, v*21, feat] -> fusion -> [b, 21, feat]: CrossAttentionFusion
+       (K1) or, with fusion cross_attn_learnable_query, the learned-probe
+       fusion (plain ops)
+    -> ChebConv GCN decoder (or the MLP one) -> joints_cam [b, 21, 3]
 
-feat is 524 for ResNet-50 "paper" (512 + 12) and 312 for HRNet w40 (300 + 12).
-The forward splits at the token boundary, as the JAX model's ``stage`` does:
-"tokens" runs the per-view trunk, "fuse" the fusion and the decoder, "full"
-both (view-parallel inference, parallel/view_parallel.py, runs them apart).
+feat is 524 for ResNet-50 "paper" (512 + 12), 312 for HRNet w40 (300 + 12)
+and 236 for ResNet-18 at early_return 3 (128 + 64 + 32 + 12). The forward
+splits at the token boundary, as the JAX model's ``stage`` does: "tokens"
+runs the per-view trunk, "fuse" the fusion and the decoder, "full" both
+(view-parallel inference, parallel/view_parallel.py, runs them apart).
+
+With ``root_relative=False`` the absolute-root branch runs too: each view's
+wrist token with its absolute 2D coordinates, a 3-layer CrossAttentionFusion
+over the V of them (K1 at (V, V), (1, V-1) and (1, 1)) and an MLP give
+``root_joint`` [b, 1, 3].
 
 The public layout is the JAX package's; the output dict is the same, every
 entry at >= f32.
@@ -32,11 +44,19 @@ from torch import nn
 
 from handmvnet_tpu_torch.config import ModelConfig
 from handmvnet_tpu_torch.models.backbones.hrnet import WIDTHS as HRNET_WIDTHS, HRNetBackbone
-from handmvnet_tpu_torch.models.backbones.resnet import ResNetBackbone
-from handmvnet_tpu_torch.models.fusion import CrossAttentionFusion
+from handmvnet_tpu_torch.models.backbones.resnet import ResNetBackbone, deepest_side
+from handmvnet_tpu_torch.models.fusion import (
+    CrossAttentionFusion,
+    CrossAttentionFusionLearnableQuery,
+)
 from handmvnet_tpu_torch.models.layers import batch_norm
 from handmvnet_tpu_torch.models.nets import JointsDecoderGCN, JointsDecoderNN, SampleNet
-from handmvnet_tpu_torch.ops.geometry import box_corner_points, centered_coordinates, fov_angles
+from handmvnet_tpu_torch.ops.geometry import (
+    box_corner_points,
+    centered_coordinates,
+    fov_angles,
+    joints_crop_to_img,
+)
 from handmvnet_tpu_torch.ops.heatmap import soft_argmax_2d
 
 
@@ -49,47 +69,86 @@ def _at_least_f32(dtype: torch.dtype) -> torch.dtype:
 
 
 class HandMvNet(nn.Module):
-    """The port covers the release configs' models: ResNet "50_paper" or
-    HRNet w40 (and w64), the cross_attn fusion, root-relative output.
-    ``dropout`` is the fusion blocks' rate (the reference fixes 0.1; 0
-    trains without dropout). ``hrnet_branch_grouped`` is a TPU layout
+    """Every model of the JAX package's HandMvNet: the ResNet types of
+    ``resnet.LAYOUTS`` and HRNet w40 / w64, the cross_attn and
+    cross_attn_learnable_query fusions, root-relative or with the
+    absolute-root branch (``root_relative=False``). ``dropout`` is the rate
+    of the cross_attn fusion blocks and of the root branch (the reference
+    fixes 0.1; 0 trains without dropout); the learnable-query fusion has
+    none, as in the JAX package. ``hrnet_branch_grouped`` is a TPU layout
     option of the JAX package and is ignored; so is ``backbone_int8`` on
     HRNet, as in the JAX package, while on ResNet it raises (the int8 convs
-    are not ported)."""
+    are not ported). A combination the JAX forward cannot run is refused
+    here, at construction."""
 
     def __init__(self, cfg: ModelConfig, image_size: int = 256, heatmap_size: int = 32,
-                 dropout: float = 0.1):
+                 dropout: float = 0.1, root_relative: bool = True):
         super().__init__()
-        if cfg.fusion != "cross_attn":
-            raise ValueError(f"the port has the cross_attn fusion only, not {cfg.fusion}")
+        if cfg.fusion not in ("cross_attn", "cross_attn_learnable_query"):
+            raise ValueError(f"invalid fusion type: {cfg.fusion}")
         self.cfg = cfg
         self.image_size = image_size
         self.heatmap_size = heatmap_size
+        self.root_relative = root_relative
         j = cfg.num_joints
-        if cfg.backbone == "resnet" and cfg.backbone_int8:
-            raise NotImplementedError(INT8_TODO)
-        if cfg.backbone == "resnet" and cfg.backbone_type == "50_paper":
-            channels = (1024,)
-            self.backbone = ResNetBackbone(cfg.backbone_type, frozen_bn=cfg.freeze_bn)
-            self.pose_net = nn.Sequential(
-                nn.Conv2d(1024, 512, 1), batch_norm(512), nn.ReLU(), nn.Conv2d(512, j, 1))
+        if cfg.backbone == "resnet":
+            if cfg.backbone_int8:
+                raise NotImplementedError(INT8_TODO)
+            channels = self._resnet(cfg, image_size, heatmap_size)
         elif cfg.backbone == "hrnet" and cfg.backbone_type in HRNET_WIDTHS:
             channels = HRNET_WIDTHS[cfg.backbone_type]
             self.backbone = HRNetBackbone(cfg.backbone_type)
             self.pose_net = nn.Conv2d(channels[0], j, 3, 2, padding=1)  # H/4 -> H/8
+        elif cfg.backbone == "hrnet":
+            raise ValueError(f"unsupported HRNet width {cfg.backbone_type!r} "
+                             f"(the port has {'/'.join(HRNET_WIDTHS)})")
         else:
-            raise ValueError(f"the port has the ResNet 50_paper and HRNet "
-                             f"{'/'.join(HRNET_WIDTHS)} backbones, not "
-                             f"{cfg.backbone} {cfg.backbone_type}")
+            raise ValueError(f"unsupported backbone: {cfg.backbone}")
         self.sample_nets = nn.ModuleList(SampleNet(c, c // 2) for c in channels)
         # the token width of the backbone's own maps, as the JAX model takes it
         feat_dim = dataclasses.replace(cfg, backbone_channels=channels).feat_dim
-        self.joints_late_fusion = CrossAttentionFusion(
-            feat_dim, max_tokens=j * cfg.num_views, custom_query_length=j,
-            num_layers=cfg.fusion_layers, dropout=dropout, add_pos="sin" in cfg.pos_enc,
-        )
+        if cfg.fusion == "cross_attn":
+            self.joints_late_fusion = CrossAttentionFusion(
+                feat_dim, max_tokens=j * cfg.num_views, custom_query_length=j,
+                num_layers=cfg.fusion_layers, dropout=dropout, add_pos="sin" in cfg.pos_enc,
+            )
+        else:
+            self.joints_late_fusion = CrossAttentionFusionLearnableQuery(
+                feat_dim, max_tokens=j * cfg.num_views)
         decoder = JointsDecoderGCN if cfg.use_gcn else JointsDecoderNN
         self.joints_decoder = decoder(feat_dim)
+        if not root_relative:
+            self.root_late_fusion = CrossAttentionFusion(
+                feat_dim + 2, max_tokens=cfg.num_views, custom_query_length=1, num_layers=3,
+                dropout=dropout, add_pos="sin" in cfg.pos_enc)
+            self.root_decoder = JointsDecoderNN(feat_dim + 2)
+
+    def _resnet(self, cfg: ModelConfig, image_size: int, heatmap_size: int) -> tuple[int, ...]:
+        """Build the ResNet backbone and its head; return the channels of the
+        maps the model samples, deepest first. Refuses a layout whose
+        heatmaps would not be heatmap_size on a side, where the JAX forward
+        fails on its reshape of the heatmaps."""
+        version, j = cfg.backbone_type, cfg.num_joints
+        self.backbone = ResNetBackbone(version, frozen_bn=cfg.freeze_bn,
+                                       early_return=cfg.backbone_early_return)
+        paper, maps = self.backbone.paper, self.backbone.channels
+        side = deepest_side(paper, len(maps), image_size) * (1 if paper else 2)
+        if side != heatmap_size:
+            raise ValueError(
+                f"resnet {version} at backbone_early_return {cfg.backbone_early_return} gives "
+                f"{side}^2 heatmaps from {image_size}^2 images, not the heatmap_size "
+                f"{heatmap_size}^2 that the JAX forward reshapes them to")
+        if paper:  # its last map
+            self.pose_net = nn.Sequential(
+                nn.Conv2d(maps[-1], 512, 1), batch_norm(512), nn.ReLU(), nn.Conv2d(512, j, 1))
+            return maps[-1:]
+        # flax ConvTranspose(4, stride 2, padding ((2, 2), (2, 2)), transpose_kernel)
+        # dilates by 2 and pads 2 a side: torch's padding is k - 1 - 2 = 1 (2x up)
+        self.pose_net = nn.Sequential(
+            nn.ConvTranspose2d(maps[-1], 128, 4, stride=2, padding=1), batch_norm(128),
+            nn.ReLU(), nn.Conv2d(128, 64, 3, padding=1), batch_norm(64), nn.ReLU(),
+            nn.Conv2d(64, j, 3, padding=1))
+        return maps[::-1]  # every map, deepest first
 
     def _fuse_decode(self, tokens_b: torch.Tensor,
                      generator: torch.Generator | None = None) -> torch.Tensor:
@@ -124,7 +183,10 @@ class HandMvNet(nn.Module):
         images = x.reshape(b * v, *x.shape[2:]).permute(0, 3, 1, 2)  # NCHW view
 
         feats = self.backbone(images)
-        if isinstance(feats, torch.Tensor):
+        if isinstance(feats, dict):
+            # deepest map first; the rank-2 res_layer4_mean is not sampled
+            feats = [f for f in reversed(feats.values()) if f.dim() == 4]
+        elif isinstance(feats, torch.Tensor):
             feats = [feats]
         heatmaps = self.pose_net(feats[0])  # [b*v, J, h, w]
         # the x1000 softmax overflows bf16: promote, never downcast
@@ -155,4 +217,15 @@ class HandMvNet(nn.Module):
         }
         if stage == "tokens":
             return {"tokens": tokens_b, **per_view}
-        return {"joints_cam": self._fuse_decode(tokens_b, generator).to(out_dtype), **per_view}
+        out = {"joints_cam": self._fuse_decode(tokens_b, generator).to(out_dtype), **per_view}
+        if not self.root_relative:
+            if bboxes is None:
+                raise ValueError("the absolute-root branch needs bboxes for the wrist tokens' "
+                                 "absolute 2D coordinates")
+            # the heatmap-space coordinates go in with the image size, as in the JAX model
+            abs_coords = joints_crop_to_img(joint_coords, bboxes.reshape(b * v, 4).to(
+                joint_coords.dtype), float(self.image_size))
+            wrist = torch.cat([tokens[:, 0], abs_coords[:, 0]], dim=-1).reshape(b, v, -1)
+            root = self.root_decoder(self.root_late_fusion(wrist, generator))
+            out["root_joint"] = root.to(out_dtype)
+        return out

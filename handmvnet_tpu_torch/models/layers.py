@@ -142,6 +142,57 @@ class MultiHeadAttention(nn.Module):
         return self.norm2(self.ff(out, generator) + out)
 
 
+class MultiHeadAttentionLearnableQuery(nn.Module):
+    """A block of the learnable-query fusion: the sinusoidal PE is added to
+    its input, and, in cross mode, the learned ``probe`` [1, 21, d_model]
+    (plus the PE) queries all the tokens. dim_head 256; no LayerNorm around
+    the attention. The cross block returns ff(a) + a on its 21 query tokens,
+    a self block ff(a + x) + (a + x).
+
+    The attention is plain PyTorch ops (einsum, softmax), as the JAX package
+    computes it outside any Pallas kernel: K1 takes D = 128 only."""
+
+    def __init__(self, d_model: int, max_tokens: int, n_heads: int = 8, dim_head: int = 256,
+                 dropout: float = 0.0, cross_attn: bool = True, num_query_tokens: int = 21):
+        super().__init__()
+        inner = n_heads * dim_head
+        self.n_heads = n_heads
+        self.dim_head = dim_head
+        self.cross_attn = cross_attn
+        if cross_attn:
+            self.probe = nn.Parameter(torch.randn(1, num_query_tokens, d_model))
+        self.to_q = nn.Linear(d_model, inner, bias=False)
+        self.to_k = nn.Linear(d_model, inner, bias=False)
+        self.to_v = nn.Linear(d_model, inner, bias=False)
+        self.to_out = nn.Sequential(nn.Linear(inner, d_model))
+        self.dropout = Dropout(dropout)
+        self.ff = FeedForward(d_model, dim_head, dropout)
+        pe = torch.from_numpy(sinusoidal_position_table(d_model, max_tokens))
+        self.register_buffer("pe", pe, persistent=False)
+
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+        pe = self.pe.to(x.dtype)
+        x = x + pe[:, : x.shape[1]]
+        b = x.shape[0]
+        if self.cross_attn:
+            probe = self.probe.expand(b, -1, -1)
+            xq = probe + pe[:, : probe.shape[1]]
+        else:
+            xq = x
+        nq, nk = xq.shape[1], x.shape[1]
+        heads = (self.n_heads, self.dim_head)
+        q = self.to_q(xq).view(b, nq, *heads)
+        k = self.to_k(x).view(b, nk, *heads)
+        v = self.to_v(x).view(b, nk, *heads)
+        logits = torch.einsum("bihd,bjhd->bhij", q, k) * self.dim_head ** -0.5
+        attn = torch.softmax(logits, dim=-1)
+        out = torch.einsum("bhij,bjhd->bihd", attn, v).reshape(b, nq, -1)
+        out = self.dropout(self.to_out(out), generator)
+        if not self.cross_attn:
+            out = out + x
+        return self.ff(out, generator) + out
+
+
 class ChebConv(nn.Module):
     """Chebyshev graph convolution over a precomputed basis [K+1, N, N]:
     out = sum_k (T_k x) W_k + bias. weight [K+1, 1, in, out] and bias
@@ -156,3 +207,59 @@ class ChebConv(nn.Module):
     def forward(self, x: torch.Tensor, basis: torch.Tensor) -> torch.Tensor:
         propagated = torch.einsum("knm,bmc->kbnc", basis.to(x.dtype), x)
         return torch.einsum("kbnc,kcd->bnd", propagated, self.weight[:, 0]) + self.bias
+
+
+class LearnablePositionalEncoding(nn.Module):
+    """A learned additive position table ``pe`` [1, max_len, d_model], then
+    dropout (dormant: no config selects it)."""
+
+    def __init__(self, d_model: int, max_len: int = 5000, dropout: float = 0.0):
+        super().__init__()
+        self.pe = nn.Parameter(torch.randn(1, max_len, d_model))
+        self.dropout = Dropout(dropout)
+
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+        return self.dropout(x + self.pe[:, : x.shape[1]].to(x.dtype), generator)
+
+
+def frequency_encoding(x: torch.Tensor, num_frequencies: int = 4) -> torch.Tensor:
+    """sin and cos of each scalar at num_frequencies / 2 frequencies,
+    flattened over the last input dim: [..., n] -> [..., n * num_frequencies]
+    (dormant)."""
+    freqs = torch.exp(torch.arange(0, num_frequencies, 2, dtype=torch.float32, device=x.device)
+                      * (-math.log(10000.0) / num_frequencies))
+    scaled = x[..., None] * freqs
+    enc = torch.cat([torch.sin(scaled), torch.cos(scaled)], dim=-1)
+    return enc.reshape(*x.shape[:-1], -1)
+
+
+class GraphConv(nn.Module):
+    """Dense-adjacency graph conv: act(fc(L x)) with L = D^-1/2 A D^-1/2 from
+    the (possibly learned) adjacency A, D its column sums (dormant)."""
+
+    def __init__(self, in_features: int, out_features: int, use_relu: bool = True):
+        super().__init__()
+        self.fc = nn.Linear(in_features, out_features)
+        self.use_relu = use_relu
+
+    def forward(self, x: torch.Tensor, adj: torch.Tensor) -> torch.Tensor:
+        d = (adj.sum(dim=-2) + 1e-5) ** -0.5
+        lap = d[..., :, None] * adj * d[..., None, :]
+        h = self.fc(torch.matmul(lap.to(x.dtype), x))
+        return F.relu(h) if self.use_relu else h
+
+
+class GraphPool(nn.Module):
+    """A linear map across the node axis, [B, in_nodes, C] -> [B, out_nodes,
+    C] (dormant)."""
+
+    def __init__(self, in_nodes: int, out_nodes: int):
+        super().__init__()
+        self.fc = nn.Linear(in_nodes, out_nodes)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc(x.transpose(-1, -2)).transpose(-1, -2)
+
+
+class GraphUnpool(GraphPool):
+    """The inverse direction of GraphPool: more nodes out than in."""

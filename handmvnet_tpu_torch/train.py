@@ -74,7 +74,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from handmvnet_tpu_torch.config import Config
+from handmvnet_tpu_torch.config import Config, refuse_absolute_root
 from handmvnet_tpu_torch.data.dexycb import DexYCBDataset
 from handmvnet_tpu_torch.data.ho3d import HO3DDataset
 from handmvnet_tpu_torch.data.jpeg import decode_jpeg
@@ -307,6 +307,7 @@ def _train(args, device: torch.device, group: dist.ProcessGroup | None = None) -
     main_rank = is_main(group)
 
     cfg = Config.from_yaml(args.config)
+    refuse_absolute_root(cfg, "train.py")
     if args.epochs:
         cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, epochs=args.epochs))
     out_dir = Path(args.output_dir or cfg.base_output_dir)

@@ -56,11 +56,13 @@ class TrainState:
 def build_model(cfg: Config, device: str = "cuda", seed: int = 0,
                 dropout: float = 0.1) -> HandMvNet:
     """The config's model with PyTorch's default initialisation drawn under
-    ``seed``, in fp32 on ``device``."""
+    ``seed``, in fp32 on ``device``; with ``train.root_relative`` off it has
+    the absolute-root branch."""
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         model = HandMvNet(cfg.model, image_size=cfg.data.image_size,
-                          heatmap_size=cfg.data.heatmap_size, dropout=dropout)
+                          heatmap_size=cfg.data.heatmap_size, dropout=dropout,
+                          root_relative=cfg.train.root_relative)
     return model.to(device)
 
 
@@ -79,8 +81,10 @@ def make_optimizer(cfg: Config, model: nn.Module) -> torch.optim.AdamW:
 
 
 def create_train_state(model: HandMvNet, cfg: Config, steps_per_epoch: int) -> TrainState:
-    if not cfg.train.root_relative:
-        raise ValueError("the port has the root-relative model only (train.root_relative)")
+    built = getattr(model, "root_relative", cfg.train.root_relative)
+    if built != cfg.train.root_relative:
+        raise ValueError(f"train.root_relative is {cfg.train.root_relative} but the model was "
+                         f"built with root_relative={built}")
     if cfg.train.compute_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"compute_dtype {cfg.train.compute_dtype!r}: float32 or bfloat16")
     optimizer = make_optimizer(cfg, model)
@@ -125,6 +129,7 @@ def forward_loss(model: HandMvNet, cfg: Config, batch: Mapping[str, torch.Tensor
     losses = handmvnet_loss(
         out, labels, cfg.train.loss_weights,
         mask_invisible_joints=cfg.train.mask_invisible_joints,
+        root_relative=cfg.train.root_relative,
         intrinsics=batch.get("intrinsic"), extrinsics=batch.get("extrinsic"),
         root_idx=cfg.root_idx, image_size=float(cfg.data.image_size),
     )

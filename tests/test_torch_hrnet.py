@@ -367,8 +367,12 @@ def test_every_release_config_builds(path):
 
 @pytest.mark.parametrize("field,value", [
     ("backbone_type", "w32"), ("backbone", "hourglass"), ("backbone_type", "18"),
-    ("fusion", "cross_attn_learnable_query")])
+    ("fusion", "self_attn")])
 def test_other_models_are_refused(field, value):
+    """What the JAX model refuses: an HRNet width it has no layout of (w32,
+    and a ResNet type on HRNet), the hourglass backbone (which its HandMvNet
+    does not reach) and an unknown fusion. The learnable-query fusion and the
+    ResNet family are built (tests/test_torch_family.py)."""
     mcfg = dataclasses.replace(Config.from_yaml(CONFIG).model, **{field: value})
     with pytest.raises(ValueError, match=value):
         HandMvNet(mcfg)

@@ -30,6 +30,7 @@ def test_port_has_files():
     parallel = {p.name for p in PORT_FILES if p.parent.name == "parallel"}
     assert parallel == {"__init__.py", "mesh.py", "view_parallel.py"}
     assert ROOT / "handmvnet_tpu_torch" / "export.py" in PORT_FILES
+    assert ROOT / "handmvnet_tpu_torch" / "models" / "backbones" / "hourglass.py" in PORT_FILES
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
