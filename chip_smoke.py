@@ -161,7 +161,31 @@ Phases; any failure exits nonzero and prints no result:
      the kernel path against the plain path (root_joint 1e-4 m); (d)
      StackedHourglass and StackedBisectedHourglass at their defaults, one
      forward on the card against the CPU (no kernel; rel 1e-4 of max);
- 14. a {"kernels": [...]} line (the HR rows carry K1's launches on the HR
+ 14. geometry and tooling, the int8 serving path and remat, fp32 unless
+     said: (a) the DLT, RANSAC and confidence-masked triangulations at B 16
+     x V 8 x 21 joints on the card against the CPU (rel 1e-5 of the
+     points' scale); sanity.main on the HO3D release config against
+     consistent shards written on the card (both of its checks, its MPJPE
+     printed) and the GT panels drawable here (infer.py's PANELS rule); (b)
+     model.backbone_int8 on the main path's model (b1 x 8 x 256^2): each
+     Q8Conv's int32 sums on the card bitwise equal to the CPU's on the
+     same int8 operands, and the forward's convs timed against F.conv2d;
+     the eval_fps protocol cut as the HR one, int8 off then on, in fp32
+     and bf16 (K1 5 and K2 1 launches a forward, the p50s side by side);
+     int8 against the exact model on the same weights (backbone map
+     correlation > 0.98, median joints_crop_img delta < 4 px: the JAX
+     package's bounds) with the int8 forward's device ms, ops and busy
+     share; the int8 kernel path against the plain path (phase 5's
+     limits); an export bundle of the int8 model replayed against the live
+     infer_step (K1 5, K2 1); (c) on the HO3D ResNet and HR release
+     recipes, two optimizer steps with train.remat on against off from
+     one init under deterministic algorithms (loss terms, gradient norm
+     and every BN running statistic rel 1e-6; whether bitwise printed),
+     K1 10 and K2 2 (HR 0) launches a step with remat on, the ms a step
+     and peak memory both ways, and resolve_remat's "auto" at every
+     release config's shapes (off at all of them);
+ 15. a {"kernels": [...]} line (the /int8 and /remat rows phase 14's;
+     the HR rows carry K1's launches on the HR
      paths, the /eval rows the launches of phase 8's eval runs, the
      /train_shards rows phase 9's, the /train_dp rows phase 10's, the
      /infer, /vis and /eval_dp rows phase 11's, the /export and /view rows
@@ -262,6 +286,14 @@ ROOT_ATTN_SHAPES = ((8, 8), (1, 7), (1, 1))
 ROOT_TRAIN_ATTN_SHAPES = ((5, 5), (1, 4), (1, 1))
 ROOT_TOL_M = 1e-4  # root_joint, kernel path against plain path (as joints_cam)
 HOURGLASS_REL = 1e-4
+# geometry and tooling, int8 serving, remat (phase 14): the DLT triangulations
+# at B = 16 samples x 8 views x 21 joints, card against CPU (rel 1e-5 of the
+# points' scale); the int8 protocol cut as the HR one; JAX's own int8 bounds
+# against the exact model (tests/test_quant.py:102, :147); two optimizer
+# steps with remat on against off (rel 1e-6), then 2 + 5 timed steps each way
+TRI_BATCH, TRI_VIEWS, TRI_REL = 16, 8, 1e-5
+INT8_CORR, INT8_MEDIAN_PX = 0.98, 4.0
+REMAT_STEPS, REMAT_WARMUP, REMAT_ITERS, REMAT_REL = 2, 2, 5, 1e-6
 
 
 def fail(msg: str) -> None:
@@ -537,7 +569,7 @@ def train_run(attention_ops, stem_ops, dtype_name: str, config: Path = CONFIG,
     cfg = train_config(dtype_name, config)
     label = f"{config.stem} training {dtype_name}"
     accum = accumulation(cfg)
-    state = create_train_state(build_model(cfg, "cuda", seed=0), cfg,
+    state = create_train_state(build_model(cfg, "cuda", seed=0, accum_steps=accum), cfg,
                                steps_per_epoch=cfg.data.split_size("train") // TRAIN_BATCH)
     data = synthetic_batch(TRAIN_BATCH, TRAIN_VIEWS, cfg.data.image_size, cfg.data.heatmap_size,
                            seed=0)
@@ -2295,6 +2327,394 @@ def family_phase(attention_ops, stem_ops, gen, card_line: str) -> dict:
     hourglass_check()
     return out
 
+def triangulation_inputs(rng: np.random.Generator) -> dict:
+    """TRI_BATCH hands of 21 joints seen by a ring of TRI_VIEWS cameras
+    (data.synthetic's consistent rig, fx = fy = 600 at 640 x 480): the world
+    points, their projections with 0.3 px of noise, the same with a fifth of
+    the (view, joint) entries thrown 150-400 px off (RANSAC's outliers),
+    confidences that give the outliers 0-0.4 and the others 0.6-1, and the
+    intrinsics and world -> camera extrinsics, float32 on the CPU."""
+    from handmvnet_tpu_torch.data.synthetic import _consistent_rig
+
+    b, v, j = TRI_BATCH, TRI_VIEWS, 21
+    target = np.array([0.0, 0.0, 0.55])
+    w2c = np.linalg.inv(_consistent_rig(v, target))  # [V, 4, 4]
+    k = np.array([[600.0, 0, 320.0], [0, 600.0, 240.0], [0, 0, 1]])
+    world = target + rng.normal(size=(b, j, 3)) * 0.04
+    cam = np.einsum("vik,bjk->bvji", w2c[:, :3, :3], world) + w2c[None, :, None, :3, 3]
+    uv = cam[..., :2] / cam[..., 2:3] * 600.0 + [320.0, 240.0]
+    clean = uv + rng.normal(size=uv.shape) * 0.3
+    off = rng.uniform(150, 400, size=uv.shape) * rng.choice([-1, 1], size=uv.shape)
+    outlier = rng.uniform(size=uv.shape[:-1]) < 0.2
+    noisy = np.where(outlier[..., None], clean + off, clean)
+    conf = np.where(outlier, rng.uniform(0.0, 0.4, outlier.shape),
+                    rng.uniform(0.6, 1.0, outlier.shape))
+    t = {"world": world, "clean": clean, "noisy": noisy, "conf": conf,
+         "ks": np.broadcast_to(k, (b, v, 3, 3)), "extrs": np.broadcast_to(w2c, (b, v, 4, 4))}
+    return {name: torch.from_numpy(np.ascontiguousarray(a, np.float32)) for name, a in t.items()}
+
+
+def triangulation_check() -> None:
+    """Phase 14 (a): the DLT, RANSAC and confidence-masked triangulations on
+    the card against the same functions on the CPU (rel TRI_REL of the
+    points' scale), and each against the true points, printed."""
+    from handmvnet_tpu_torch.ops import triangulation as tri
+
+    t = triangulation_inputs(np.random.default_rng(0))
+
+    def run(d: dict) -> dict:
+        return {
+            "DLT": tri.batch_triangulate_dlt(d["clean"], d["ks"], d["extrs"]),
+            "RANSAC": tri.batch_triangulate_dlt_ransac(d["noisy"], d["ks"], d["extrs"],
+                                                       n_cams=3, n_iterations=100),
+            "confident": torch.stack([tri.triangulate_dlt_confident(
+                d["noisy"][i], d["conf"][i], d["ks"][i], d["extrs"][i])
+                for i in range(TRI_BATCH)]),
+        }
+
+    cpu = run(t)
+    card = run({k: v.cuda() for k, v in t.items()})
+    torch.cuda.synchronize()
+    scale = float(t["world"].abs().max())
+    for name, ref in cpu.items():
+        err = max_err(card[name].cpu(), ref)
+        truth = max_err(ref, t["world"])
+        print(f"triangulation {name} at B {TRI_BATCH} x V {TRI_VIEWS} x J 21: card vs CPU "
+              f"max_abs_err={err:.3e} m (scale {scale:.3f} m, tol {TRI_REL * scale:.1e}); "
+              f"CPU vs the true points {truth:.3e} m", flush=True)
+        if card[name].device.type != "cuda" or not err <= TRI_REL * scale:
+            fail(f"triangulation {name}: the card disagrees with the CPU by {err} m")
+
+
+def sanity_check(tmp: Path, libs: dict) -> dict:
+    """Phase 14 (a): sanity.main on the HO3D release config against
+    consistent shards written on the card, and the drawable GT panels."""
+    from handmvnet_tpu_torch import sanity
+    from handmvnet_tpu_torch.config import Config
+    from handmvnet_tpu_torch.data.synthetic import write_synthetic_ho3d_shards
+
+    shards = tmp / "shards"
+    t0 = time.perf_counter()
+    for split, n, seed in (("train", 9, 0), ("test", 3, 7)):
+        write_synthetic_ho3d_shards(shards, num_shards=n, samples_per_shard=2, num_views=5,
+                                    split=split, seed=seed, consistent_geometry=True,
+                                    device="cuda")
+    config = tmp / "HO3D_sanity.yaml"
+    text, n_data = re.subn(r"(?m)^  dataset_dir: .*$", f"  dataset_dir: {shards}",
+                           CONFIG.read_text())
+    if n_data != 1:
+        fail(f"{CONFIG.name}: no dataset_dir line to point at the sanity shards")
+    config.write_text(text)
+    t1 = time.perf_counter()
+    try:
+        summary = sanity.main(["--config", str(config), "--device", "cuda"])
+    except SystemExit as e:
+        fail(f"sanity.main on the card: {e}")
+    t2 = time.perf_counter()
+    mpjpe = summary["triangulation"]["mpjpe_mm"]
+    print(f"sanity.main --device cuda: triangulation MPJPE {mpjpe:.6f} mm over "
+          f"{summary['triangulation']['num_samples']} samples, extrinsics drift "
+          f"{summary['extrinsics']['max_abs_drift']:.1e}; shards written on the card in "
+          f"{t1 - t0:.1f} s, checks {t2 - t1:.1f} s", flush=True)
+    drawable = tuple(n for n, lib in sanity.PANELS.items() if libs[lib])
+    for name in sorted(set(sanity.PANELS) - set(drawable)):
+        print(f"sanity panels: {name} not drawn: {sanity.PANELS[name]} is absent", flush=True)
+    panels = sanity.gt_overlay_panels(Config.from_yaml(config), out_dir=tmp / "panels",
+                                      device="cuda", names=drawable)
+    for name, canvas in panels.items():
+        if canvas.ndim != 3 or not float(canvas.std()) > 1.0:
+            fail(f"sanity panel {name} is blank or not an image")
+    missing = [n for n in drawable if not (tmp / "panels" / n).is_file()]
+    if missing:
+        fail(f"sanity panels not written: {missing}")
+    print(f"sanity panels: wrote {' '.join(drawable)} ({time.perf_counter() - t2:.1f} s)",
+          flush=True)
+    return {"mpjpe_mm": mpjpe}
+
+
+def q8_conv_check(card_line: str) -> dict:
+    """Phase 14 (b): every Q8Conv of the int8 main-path model at its input of
+    one fp32 forward: the int32 sums on the card bitwise equal to the CPU's
+    on the same int8 operands; then the forward's int8 convs timed against
+    the same convs in fp32 and bf16 F.conv2d (CUDA events, back to back)."""
+    from handmvnet_tpu_torch.eval_fps import build_model, model_inputs
+    from handmvnet_tpu_torch.ops.quant import Q8Conv, q8_conv, q8_conv_int32, quantize_sym
+
+    model = build_model(family_config(CONFIG, backbone_int8=True), 8, 256, "cuda")
+    calls = []
+    hooks = [m.register_forward_pre_hook(lambda mod, args: calls.append((mod, args[0])))
+             for m in model.modules() if isinstance(m, Q8Conv)]
+    with torch.inference_mode():
+        model(*model_inputs(8, 256, "cuda", torch.float32))
+    for h in hooks:
+        h.remove()
+    shapes = set()
+    with torch.inference_mode():
+        for mod, x in calls:
+            xq, _ = quantize_sym(x)
+            wq, _ = quantize_sym(mod.weight, dim=(1, 2, 3))
+            s, p = mod.stride[0], mod.padding[0]
+            got = q8_conv_int32(xq, wq, s, p)
+            ref = q8_conv_int32(xq.cpu(), wq.cpu(), s, p)
+            if got.device.type != "cuda" or got.dtype != torch.int32 or \
+                    not torch.equal(got.cpu(), ref):
+                fail(f"q8_conv_int32 at x {tuple(x.shape)}, w {tuple(mod.weight.shape)}, stride "
+                     f"{s}: the card's int32 sums differ from the CPU's")
+            shapes.add((tuple(x.shape), tuple(mod.weight.shape), s, p))
+
+        def int8():
+            for mod, x in calls:
+                q8_conv(x, mod.weight, mod.stride[0], mod.padding[0])
+
+        def plain(dtype):
+            ws = [(mod.weight.to(dtype), x.to(dtype)) for mod, x in calls]
+
+            def run():
+                for (mod, _), (w, x) in zip(calls, ws):
+                    F.conv2d(x, w, stride=mod.stride, padding=mod.padding)
+            return run
+
+        f32, bf16 = plain(torch.float32), plain(torch.bfloat16)
+        ms = {name: min(_eager_ms(fn, 10, 3) for _ in range(2))
+              for name, fn in (("int8", int8), ("fp32", f32), ("bf16", bf16))}
+    print(f"q8_conv_int32 card vs CPU: bitwise equal int32 sums at {len(shapes)} conv shapes "
+          f"({len(calls)} convs a forward); the forward's block convs back to back: int8 path "
+          f"{ms['int8']:.3f} ms, F.conv2d fp32 {ms['fp32']:.3f} ms, bf16 {ms['bf16']:.3f} ms "
+          f"({card_line})", flush=True)
+    return {"shapes": len(shapes), "convs": len(calls), "ms": ms}
+
+
+def int8_serving(attention_ops, stem_ops, card_line: str, tmp: Path) -> dict:
+    """Phase 14 (b): the int8 main path (see the module docstring)."""
+    from handmvnet_tpu_torch import export, infer
+    from handmvnet_tpu_torch.config import Config
+    from handmvnet_tpu_torch.eval_fps import build_model, model_inputs
+    from handmvnet_tpu_torch.profile_forward import profile_calls
+
+    out = {"q8": q8_conv_check(card_line)}
+    cfg, exact = family_config(CONFIG, backbone_int8=True), Config.from_yaml(CONFIG)
+    launches, p50 = {}, {}
+    for name in DTYPES:
+        for label, c in (("int8 off", exact), ("int8", cfg)):
+            got, _, stats = serve(attention_ops, stem_ops, c, label, name, True,
+                                  stem_per_forward=1, warmup=HR_WARMUP, iters=HR_ITERS)
+            p50[(label, name)] = stats["p50_ms"]
+            if label == "int8":
+                launches[DTYPES[name]] = got
+        print(f"int8 serving {name}: p50_ms {p50[('int8', name)]:.4f} against "
+              f"{p50[('int8 off', name)]:.4f} with int8 off ({HR_WARMUP} + 2 x {HR_ITERS} steps "
+              f"each, the mesh stage included; {card_line})", flush=True)
+    out["launches"], out["p50"] = launches, p50
+
+    # the int8 outputs against the exact model's, on the same weights and request
+    images = None
+    for name, dtype in DTYPES.items():
+        res = {}
+        for label, c in (("exact", exact), ("int8", cfg)):
+            model = build_model(c, 8, 256, "cuda", dtype)
+            inputs = model_inputs(8, 256, "cuda", dtype)
+            images = inputs[0].reshape(8, 256, 256, 3).permute(0, 3, 1, 2)
+            with torch.inference_mode():
+                res[label] = (model.backbone(images).float(), model(*inputs))
+            if label == "int8":
+                prof = profile_calls(lambda: model(*inputs), warmup=3, iters=20, profiled=5, top=3)
+                print(f"int8 {name} forward alone: wall_p50_ms={prof['wall_p50_ms']:.3f} "
+                      f"device_ms={prof['device_ms']:.3f} device_ops="
+                      f"{prof['device_ops_per_forward']:.0f} busy={prof['busy']:.2f} "
+                      f"graph_ms={prof['graph_ms']:.3f} ({card_line})", flush=True)
+                out[f"device_ms_{name}"] = prof["device_ms"]
+            del model
+        a, b = (res[k][0].flatten().cpu().numpy() for k in ("exact", "int8"))
+        corr = float(np.corrcoef(a, b)[0, 1])
+        px = float((res["int8"][1]["joints_crop_img"] - res["exact"][1]["joints_crop_img"])
+                   .abs().median())
+        cam = max_err(res["int8"][1]["joints_cam"], res["exact"][1]["joints_cam"])
+        print(f"int8 vs exact {name}: backbone map correlation {corr:.7f} (> {INT8_CORR}), "
+              f"median joints_crop_img delta {px:.4f} px (< {INT8_MEDIAN_PX}), joints_cam "
+              f"max_abs_err {cam:.3e} m", flush=True)
+        if not (corr > INT8_CORR and px < INT8_MEDIAN_PX):
+            fail(f"int8 {name}: backbone correlation {corr} or median crop delta {px} px "
+                 "outside the JAX package's bounds")
+        out[f"corr_{name}"], out[f"median_px_{name}"] = corr, px
+
+    serve_kernel_vs_plain(attention_ops, stem_ops, cfg, "int8")
+
+    # an export bundle of the int8 model, replayed against the live step
+    config = tmp / "HO3D_int8.yaml"
+    text, n = re.subn(r"(?m)^model:$", "model:\n  backbone_int8: true", CONFIG.read_text())
+    if n != 1:
+        fail(f"{CONFIG.name}: no model: line to set backbone_int8 under")
+    config.write_text(text)
+    t0 = time.perf_counter()
+    export.main(["--config", str(config), "--out", str(tmp / "bundle"), "--device", "cuda"])
+    fn, meta = export.load_bundle(tmp / "bundle", "cuda")
+    model, batch, mesh_stage = infer.prepare(infer_args(config), "cuda")
+    if not model.cfg.backbone_int8:
+        fail("the int8 config did not reach the model")
+    live = infer.infer_step(model, mesh_stage, batch)
+    attention_ops.fused_attention.launches = 0
+    stem_ops.stem_conv_nchw.launches = 0
+    replay = fn(*(batch[k] for k in INPUT_KEYS))
+    torch.cuda.synchronize()
+    got = (attention_ops.fused_attention.launches, stem_ops.stem_conv_nchw.launches)
+    print(f"int8 export: bundle written and loaded in {time.perf_counter() - t0:.1f} s, "
+          f"exported on {meta['device']}; one replay launches K1={got[0]} K2={got[1]}",
+          flush=True)
+    if got != (5, 1):
+        fail(f"the int8 bundle's replay launched {got}, expected (5, 1)")
+    compare_paths(replay, live, "int8 export", "replay vs live infer_step")
+    out["export_launches"] = got
+    return out
+
+
+def remat_run(attention_ops, stem_ops, config: Path, remat: bool, stem_per_step: int) -> dict:
+    """Phase 14 (c): REMAT_STEPS fp32 optimizer steps of the release recipe
+    (the synthetic batch of train_run, dropout on) from PyTorch's init at
+    seed 0 with train.remat forced, under deterministic algorithms, the
+    counters set to 0 just before and read just after; then REMAT_WARMUP +
+    REMAT_ITERS steps timed (CUDA events) with their peak allocated memory,
+    beside what the process held before the model was built (earlier
+    phases' tensors)."""
+    from handmvnet_tpu_torch.data.synthetic import synthetic_batch
+    from handmvnet_tpu_torch.train import accumulation
+    from handmvnet_tpu_torch.train_step import (
+        accumulate_grads, batch_to_device, build_model, create_train_state, optimizer_step,
+        train_step)
+
+    cfg = train_config("float32", config)
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, remat="on" if remat else "off"))
+    accum = accumulation(cfg)
+    torch.cuda.synchronize()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    model = build_model(cfg, "cuda", seed=0, accum_steps=accum)
+    if model.backbone.remat != remat:
+        fail(f"{config.stem}: train.remat {cfg.train.remat} built a backbone with remat "
+             f"{model.backbone.remat}")
+    state = create_train_state(model, cfg, steps_per_epoch=1000)
+    data = synthetic_batch(TRAIN_BATCH, TRAIN_VIEWS, cfg.data.image_size, cfg.data.heatmap_size,
+                           seed=0)
+    data["extrinsic"][:] = np.eye(4, dtype=np.float32)
+    batch = batch_to_device(data, "cuda")
+    gen = torch.Generator("cuda")
+    losses, norms = [], []
+    attention_ops.fused_attention.launches = 0
+    stem_ops.stem_conv_nchw.launches = 0
+    with deterministic():
+        for i in range(REMAT_STEPS):
+            losses.append(accumulate_grads(state, cfg, batch, gen.manual_seed(i), accum))
+            norms.append(optimizer_step(state, cfg))
+        torch.cuda.synchronize()
+    launches = (attention_ops.fused_attention.launches, stem_ops.stem_conv_nchw.launches)
+    want = (10 * REMAT_STEPS, stem_per_step * REMAT_STEPS)
+    if remat and launches != want:
+        fail(f"{config.stem} remat on: kernel launches {launches} in {REMAT_STEPS} steps, "
+             f"expected {want}")
+    record = {"losses": [{k: float(v) for k, v in l.items()} for l in losses],
+              "norms": [float(n) for n in norms], "launches": launches,
+              "stats": {n: b.clone() for n, b in model.named_buffers()
+                        if n.endswith(("running_mean", "running_var", "num_batches_tracked"))}}
+    for i in range(REMAT_WARMUP):
+        train_step(state, cfg, batch, gen.manual_seed(100 + i), accum)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(REMAT_ITERS):
+        train_step(state, cfg, batch, gen.manual_seed(200 + i), accum)
+    end.record()
+    end.synchronize()
+    record["ms"] = start.elapsed_time(end) / REMAT_ITERS
+    record["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    record["base_gb"] = base_gb
+    del state, model
+    torch.cuda.empty_cache()
+    return record
+
+
+def remat_check(attention_ops, stem_ops, card_line: str) -> dict:
+    """Phase 14 (c): remat on against off on the ResNet and HR release
+    recipes, and resolve_remat's "auto" at every release config's shapes."""
+    from handmvnet_tpu_torch.config import Config
+    from handmvnet_tpu_torch.train import accumulation
+    from handmvnet_tpu_torch.train_step import resolve_remat
+
+    def own(run: dict) -> float:  # the step's peak over what was held before it
+        return run["peak_gb"] - run["base_gb"]
+
+    rows = {}
+    for name, config, k2 in (("resnet", CONFIG, 2), ("hrnet", HR_CONFIG, 0)):
+        off = remat_run(attention_ops, stem_ops, config, False, k2)
+        on = remat_run(attention_ops, stem_ops, config, True, k2)
+        worst, bitwise = 0.0, True
+        for step, (lo, ln) in enumerate(zip(off["losses"], on["losses"])):
+            for key in lo:
+                worst = max(worst, abs(ln[key] - lo[key]) / max(abs(lo[key]), 1e-30))
+                bitwise &= ln[key] == lo[key]
+            worst = max(worst, abs(on["norms"][step] - off["norms"][step]) / off["norms"][step])
+            bitwise &= on["norms"][step] == off["norms"][step]
+        stat_worst = 0.0
+        for key, ref in off["stats"].items():
+            got = on["stats"][key]
+            bitwise &= torch.equal(got, ref)
+            stat_worst = max(stat_worst, max_err(got, ref) / max(float(ref.abs().max()), 1e-30))
+        print(f"{config.stem} fp32 remat on vs off, {REMAT_STEPS} steps under deterministic "
+              f"algorithms: {'bitwise equal' if bitwise else 'not bitwise equal'}; loss terms and "
+              f"gradient norm worst rel {worst:.3e}, BN running statistics worst rel "
+              f"{stat_worst:.3e} of max (tol {REMAT_REL:.0e}); launches with remat K1="
+              f"{on['launches'][0]} K2={on['launches'][1]}", flush=True)
+        print(f"   losses by step off {[round(l['loss'], 6) for l in off['losses']]} on "
+              f"{[round(l['loss'], 6) for l in on['losses']]}; gradient norms off "
+              f"{off['norms']} on {on['norms']}", flush=True)
+        if not (worst <= REMAT_REL and stat_worst <= REMAT_REL):
+            fail(f"{config.stem}: remat on differs from off: rel {worst}, BN statistics "
+                 f"{stat_worst}")
+        print(f"{config.stem} fp32 training, batch {TRAIN_BATCH} x {TRAIN_VIEWS} views at "
+              f"accumulation 2, {REMAT_WARMUP} + {REMAT_ITERS} steps: remat off ms_per_step="
+              f"{off['ms']:.3f} peak_memory_gb={off['peak_gb']:.3f}; remat on ms_per_step="
+              f"{on['ms']:.3f} peak_memory_gb={on['peak_gb']:.3f}; held before the model "
+              f"{off['base_gb']:.3f} and {on['base_gb']:.3f} GB (x{on['ms'] / off['ms']:.3f} time, "
+              f"the step's own peak x{own(on) / own(off):.3f}; {card_line})", flush=True)
+        rows[name] = {"launches": on["launches"], "steps": REMAT_STEPS, "bitwise": bitwise,
+                      "worst_rel": max(worst, stat_worst), "ms": {"off": off["ms"], "on": on["ms"]},
+                      "peak_gb": {"off": off["peak_gb"], "on": on["peak_gb"]},
+                      "held_before_gb": {"off": off["base_gb"], "on": on["base_gb"]}}
+    resolved = {}
+    for path in sorted((REPO / "configs" / "release").glob("*.yaml")):
+        cfg = Config.from_yaml(path)
+        for dtype in DTYPES:
+            c = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, compute_dtype=dtype))
+            for world in (1, 2):
+                resolved[(path.stem, dtype, world)] = resolve_remat(c, accumulation(c, world))
+    print(f"resolve_remat(train.remat auto) at the {len(resolved) // 4} release configs' "
+          f"shapes, fp32 and bf16, at 1 and 2 ranks: on at "
+          f"{sorted(k for k, v in resolved.items() if v) or 'none'}", flush=True)
+    if any(resolved.values()):
+        fail("train.remat auto turns remat on at a release shape")
+    return rows
+
+
+def tooling_phase(attention_ops, stem_ops, card_line: str) -> dict:
+    """Phase 14: geometry and sanity, the int8 serving path, remat (see the
+    module docstring)."""
+    import tempfile
+
+    out = {}
+    with tempfile.TemporaryDirectory(dir=REPO / "build", prefix="chip_smoke_") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        triangulation_check()
+        out["sanity"] = sanity_check(tmp / "sanity", probe_libraries())
+        print(f"phase 14 (a) (geometry and sanity): {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        (tmp / "int8").mkdir()
+        out["int8"] = int8_serving(attention_ops, stem_ops, card_line, tmp / "int8")
+        print(f"phase 14 (b) (int8 serving): {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    out["remat"] = remat_check(attention_ops, stem_ops, card_line)
+    print(f"phase 14 (c) (remat): {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
 
 def main() -> None:
     if not torch.cuda.is_available():
@@ -2457,7 +2877,12 @@ def main() -> None:
     family = family_phase(attention_ops, stem_ops, gen, card_line)
     print(f"phase 13 (model family): {time.perf_counter() - t_phase:.1f} s", flush=True)
 
-    # 14. the record
+    # 14. geometry and sanity, the int8 serving path, remat
+    t_phase = time.perf_counter()
+    tooling = tooling_phase(attention_ops, stem_ops, card_line)
+    print(f"phase 14 (tooling, int8, remat): {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # 15. the record
     def times(t: dict) -> dict:
         return {"ms": t["kernel"]["device"], "plain_ms": t["plain"]["device"],
                 "library_ms": t["library"]["device"], "eager_ms": t["kernel"]["eager"],
@@ -2678,6 +3103,40 @@ def main() -> None:
          "x [40, 3, 256, 256]"),
         backward="torch.nn.grad.conv2d_weight", backward_ms=stem_bwd[fp32]["ms"],
         backward_max_abs_err=stem_bwd[fp32]["err"]))
+    # phase 14's: the int8 main path calls K1 and K2 at the main path's shapes (its rows'
+    # times, the kernels are unchanged); remat training at the training microbatch's
+    int8 = tooling["int8"]
+    for dtype in DTYPES.values():
+        name = str(dtype).removeprefix("torch.")
+        extra = {"step_p50_ms": int8["p50"][("int8", name)],
+                 "int8_off_step_p50_ms": int8["p50"][("int8 off", name)],
+                 "forward_device_ms": int8[f"device_ms_{name}"]}
+        kernels.append(attention_record(
+            dtype, attn[dtype], ATTN_CALLS, int8["launches"][dtype][0],
+            ("/int8", "model.backbone_int8 main path b1 x 8 (the eval_fps protocol, "
+             f"{HR_WARMUP} + 2 x {HR_ITERS}): (168,168) x2 + (21,147) + (21,21) x2"), **extra))
+        kernels.append(stem_record(
+            dtype, stem[dtype], int8["launches"][dtype][1],
+            ("/int8", "model.backbone_int8 main path: x [8, 3, 256, 256] (the stem stays K2)"),
+            **extra))
+    remat = tooling["remat"]
+    by_model = {name: {"launches": r["launches"], "steps": r["steps"], "ms_per_step": r["ms"],
+                       "peak_memory_gb": r["peak_gb"], "held_before_gb": r["held_before_gb"],
+                       "bitwise_equal_to_off": r["bitwise"]}
+                for name, r in remat.items()}
+    kernels.append(attention_record(
+        fp32, train_attn[fp32], TRAIN_ATTN_CALLS, sum(r["launches"][0] for r in remat.values()),
+        ("/remat", f"train.remat on, HO3D ResNet and HR release recipes, {REMAT_STEPS} steps "
+         "each: microbatch forward at batch 8: (105,105) x2 + (21,84) + (21,21) x2"),
+        backward="PyTorch ops (ops/attention.py::attention_backward)",
+        backward_ms=attn_bwd[fp32]["ms"], backward_max_abs_err=attn_bwd[fp32]["err"],
+        by_model=by_model))
+    kernels.append(stem_record(
+        fp32, train_stem[fp32], remat["resnet"]["launches"][1],
+        ("/remat", f"train.remat on, ResNet release recipe, {REMAT_STEPS} steps: microbatch "
+         "forward x [40, 3, 256, 256] (outside the checkpointed blocks)"),
+        backward="torch.nn.grad.conv2d_weight", backward_ms=stem_bwd[fp32]["ms"],
+        backward_max_abs_err=stem_bwd[fp32]["err"], by_model=by_model))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the card check", flush=True)
     print(card_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -2,9 +2,10 @@
 
 Frozen dataclasses that accept the release YAMLs (configs/release/*.yaml)
 verbatim through ``Config.from_yaml``. Inference reads ``model`` and the
-image sizes of ``data``; training reads ``train`` and the batch size too.
-Fields the port does not use yet (the loader's, remat) are kept so that the
-YAMLs load.
+image sizes of ``data``; training reads ``train`` (``remat`` through
+``train_step.resolve_remat``) and the batch size too. Fields the port does
+not read (the loader's worker count, the TPU layout options, keys the
+reference ignores) are kept so that the YAMLs load.
 
 The YAML is read by a small parser of the block subset the configs use
 (nested mappings, lists of scalars, plain or quoted scalars), so that the

@@ -12,6 +12,12 @@ branch j (SUM fuse), through a 1x1 conv + BN and a nearest upsample by
 after each but the last, for j < i. A [B, 3, H, W] image gives four maps
 [B, {w, 2w, 4w, 8w}, H/4, H/8, H/16, H/32].
 
+With ``remat`` (``train.remat``) each BasicBlock of the branches runs under
+``torch.utils.checkpoint`` in train mode (``resnet.run_block``), as the JAX
+package remats them; the stem, layer1, the transitions and the fuse do not.
+The int8 convs of ``model.backbone_int8`` are ResNet's only: HRNet ignores
+the flag, as the JAX package does.
+
 Module names are the reference's torch names (``stage3.1.fuse_layers.2.0.1.0``,
 ``transition1.1.0.0``), with ``None`` where the reference has no module.
 Only the plain fuse is here: the JAX package's ``packed`` fuse and
@@ -25,7 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from handmvnet_tpu_torch.models.backbones.resnet import BasicBlock, Bottleneck
+from handmvnet_tpu_torch.models.backbones.resnet import BasicBlock, Bottleneck, run_block
 from handmvnet_tpu_torch.models.layers import batch_norm
 
 WIDTHS = {"w40": (40, 80, 160, 320), "w64": (64, 128, 256, 512)}
@@ -43,9 +49,10 @@ class HRModule(nn.Module):
     """One high-resolution module: per-branch BasicBlock chains, then the
     SUM fuse over every pair of branches."""
 
-    def __init__(self, channels: tuple[int, ...]):
+    def __init__(self, channels: tuple[int, ...], remat: bool = False):
         super().__init__()
         n = len(channels)
+        self.remat = remat
         self.branches = nn.ModuleList(
             nn.Sequential(*(BasicBlock(c, c) for _ in range(_BLOCKS))) for c in channels)
         rows = []
@@ -68,7 +75,12 @@ class HRModule(nn.Module):
         self.fuse_layers = nn.ModuleList(rows)
 
     def forward(self, xs: list[torch.Tensor]) -> list[torch.Tensor]:
-        xs = [branch(x) for branch, x in zip(self.branches, xs)]
+        outs = []
+        for branch, h in zip(self.branches, xs):
+            for block in branch:
+                h = run_block(block, h, self.remat)
+            outs.append(h)
+        xs = outs
         fused = []
         for row in self.fuse_layers:
             acc = None
@@ -82,11 +94,12 @@ class HRModule(nn.Module):
 class HRNetBackbone(nn.Module):
     """[B, 3, H, W] -> four maps [B, w_i, H / 2^(i+2), W / 2^(i+2)]."""
 
-    def __init__(self, width: str = "w40"):
+    def __init__(self, width: str = "w40", remat: bool = False):
         super().__init__()
         if width not in WIDTHS:
             raise ValueError(f"unsupported HRNet width {width!r} (the port has {sorted(WIDTHS)})")
         widths = WIDTHS[width]
+        self.remat = remat
         self.conv1 = nn.Conv2d(3, 64, 3, 2, padding=1, bias=False)
         self.bn1 = batch_norm(64)
         self.conv2 = nn.Conv2d(64, 64, 3, 2, padding=1, bias=False)
@@ -104,7 +117,7 @@ class HRNetBackbone(nn.Module):
                     + [nn.Sequential(_conv_bn(widths[branches - 2], widths[branches - 1], 2,
                                               relu=True))]))
             setattr(self, f"stage{stage}", nn.ModuleList(
-                HRModule(widths[:branches]) for _ in range(modules)))
+                HRModule(widths[:branches], remat) for _ in range(modules)))
 
     def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
         h = F.relu(self.bn1(self.conv1(x)))

@@ -60,10 +60,6 @@ from handmvnet_tpu_torch.ops.geometry import (
 from handmvnet_tpu_torch.ops.heatmap import soft_argmax_2d
 
 
-INT8_TODO = ("model.backbone_int8 is not ported: ROADMAP.md queue 1, \"ops/quant.py, the int8 "
-             "PTQ behind model.backbone_int8\"; set backbone_int8: false")
-
-
 def _at_least_f32(dtype: torch.dtype) -> torch.dtype:
     return torch.promote_types(dtype, torch.float32)
 
@@ -75,14 +71,17 @@ class HandMvNet(nn.Module):
     absolute-root branch (``root_relative=False``). ``dropout`` is the rate
     of the cross_attn fusion blocks and of the root branch (the reference
     fixes 0.1; 0 trains without dropout); the learnable-query fusion has
-    none, as in the JAX package. ``hrnet_branch_grouped`` is a TPU layout
-    option of the JAX package and is ignored; so is ``backbone_int8`` on
-    HRNet, as in the JAX package, while on ResNet it raises (the int8 convs
-    are not ported). A combination the JAX forward cannot run is refused
-    here, at construction."""
+    none, as in the JAX package. ``backbone_int8`` serves a ResNet's block
+    convs on the int8 path in eval mode (ops/quant.py; training runs the
+    plain convs) and is ignored on HRNet, as in the JAX package;
+    ``hrnet_branch_grouped`` is a TPU layout option of the JAX package and
+    is ignored. ``remat`` checkpoints the backbone's blocks in training
+    (``train_step.resolve_remat`` decides it from ``train.remat``). A
+    combination the JAX forward cannot run is refused here, at
+    construction."""
 
     def __init__(self, cfg: ModelConfig, image_size: int = 256, heatmap_size: int = 32,
-                 dropout: float = 0.1, root_relative: bool = True):
+                 dropout: float = 0.1, root_relative: bool = True, remat: bool = False):
         super().__init__()
         if cfg.fusion not in ("cross_attn", "cross_attn_learnable_query"):
             raise ValueError(f"invalid fusion type: {cfg.fusion}")
@@ -92,12 +91,10 @@ class HandMvNet(nn.Module):
         self.root_relative = root_relative
         j = cfg.num_joints
         if cfg.backbone == "resnet":
-            if cfg.backbone_int8:
-                raise NotImplementedError(INT8_TODO)
-            channels = self._resnet(cfg, image_size, heatmap_size)
+            channels = self._resnet(cfg, image_size, heatmap_size, remat)
         elif cfg.backbone == "hrnet" and cfg.backbone_type in HRNET_WIDTHS:
             channels = HRNET_WIDTHS[cfg.backbone_type]
-            self.backbone = HRNetBackbone(cfg.backbone_type)
+            self.backbone = HRNetBackbone(cfg.backbone_type, remat)
             self.pose_net = nn.Conv2d(channels[0], j, 3, 2, padding=1)  # H/4 -> H/8
         elif cfg.backbone == "hrnet":
             raise ValueError(f"unsupported HRNet width {cfg.backbone_type!r} "
@@ -123,14 +120,16 @@ class HandMvNet(nn.Module):
                 dropout=dropout, add_pos="sin" in cfg.pos_enc)
             self.root_decoder = JointsDecoderNN(feat_dim + 2)
 
-    def _resnet(self, cfg: ModelConfig, image_size: int, heatmap_size: int) -> tuple[int, ...]:
+    def _resnet(self, cfg: ModelConfig, image_size: int, heatmap_size: int,
+                remat: bool) -> tuple[int, ...]:
         """Build the ResNet backbone and its head; return the channels of the
         maps the model samples, deepest first. Refuses a layout whose
         heatmaps would not be heatmap_size on a side, where the JAX forward
         fails on its reshape of the heatmaps."""
         version, j = cfg.backbone_type, cfg.num_joints
         self.backbone = ResNetBackbone(version, frozen_bn=cfg.freeze_bn,
-                                       early_return=cfg.backbone_early_return)
+                                       early_return=cfg.backbone_early_return,
+                                       int8=cfg.backbone_int8, remat=remat)
         paper, maps = self.backbone.paper, self.backbone.channels
         side = deepest_side(paper, len(maps), image_size) * (1 if paper else 2)
         if side != heatmap_size:

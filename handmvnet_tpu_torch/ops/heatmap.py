@@ -1,5 +1,5 @@
-"""Soft-argmax over heatmaps and Gaussian heatmap rendering (counterpart of
-handmvnet_tpu/ops/heatmap.py)."""
+"""Soft-argmax over heatmaps (2D and 3D), the reference's integer argmax, and
+Gaussian heatmap rendering (counterpart of handmvnet_tpu/ops/heatmap.py)."""
 
 from __future__ import annotations
 
@@ -23,6 +23,31 @@ def soft_argmax_2d(heatmap: torch.Tensor, temperature: float = 1000.0) -> torch.
     expected_x = torch.einsum("...hw,w->...", probs, xs)
     expected_y = torch.einsum("...hw,h->...", probs, ys)
     return torch.stack([expected_x, expected_y], dim=-1)
+
+
+def soft_argmax_3d(heatmap3d: torch.Tensor, temperature: float = 1000.0) -> torch.Tensor:
+    """Expected (x, y, z) under softmax(temperature * heatmap3d).
+
+    heatmap3d: [..., J, D, H, W] -> [..., J, 3] in voxel units, in the input
+    dtype (the reference's src/models/utils.py:7-32)."""
+    *lead, j, d, h, w = heatmap3d.shape
+    probs = torch.softmax(heatmap3d.reshape(*lead, j, d * h * w) * temperature, dim=-1)
+    probs = probs.reshape(*lead, j, d, h, w)
+    axes = [torch.arange(n, dtype=probs.dtype, device=probs.device) for n in (w, h, d)]
+    return torch.stack([torch.einsum("...dhw,w->...", probs, axes[0]),
+                        torch.einsum("...dhw,h->...", probs, axes[1]),
+                        torch.einsum("...dhw,d->...", probs, axes[2])], dim=-1)
+
+
+def hard_argmax_2d(heatmap: torch.Tensor) -> torch.Tensor:
+    """The reference's integer argmax (src/models/utils.py:65-82,
+    heatmaps_to_coordinates): [..., J, H, W] -> [..., J, 2] (x, y) float32,
+    1-indexed, at the first maximum, and (0, 0) where the maximum is <= 0."""
+    *lead, j, h, w = heatmap.shape
+    flat = heatmap.reshape(*lead, j, h * w)
+    idx = flat.argmax(dim=-1).to(torch.float32)  # the first maximum
+    coords = torch.stack([torch.remainder(idx, w) + 1.0, torch.floor(idx / w) + 1.0], dim=-1)
+    return coords * (flat.amax(dim=-1) > 0).to(coords.dtype)[..., None]
 
 
 def render_gaussian_heatmaps(points: torch.Tensor, height: int, width: int,

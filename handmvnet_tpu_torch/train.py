@@ -1,7 +1,7 @@
 """Training driver:
 ``python -m handmvnet_tpu_torch.train --config configs/release/HO3D_HandMvNet.yaml``
 ``[--epochs N] [--steps-per-epoch N] [--output-dir DIR] [--resume] [--eval-first]``
-``[--device cuda] [--num-devices N]``
+``[--device cuda] [--num-devices N] [--detect-anomaly]``
 
 The counterpart of handmvnet_tpu/train.py: seed 42 (the config's), the
 reference's gradient accumulation (the config's ``accumulate_batch``, else 2
@@ -28,6 +28,13 @@ from PyTorch's default initialisation; with ``backbone_pretrained`` the
 backbone then takes the ImageNet weights at ``backbone_pretrained_path``
 (``pretrained.py``), before ``--resume``, so a restored checkpoint wins over
 the graft.
+
+``train.remat`` checkpoints the backbone's blocks (train_step.resolve_remat,
+for this rank's microbatches). ``--detect-anomaly`` runs the fit under
+``torch.autograd.detect_anomaly(check_nan=True)``, the reference's own
+switch: a backward that makes a NaN raises, naming the forward op that
+produced it. A declared divergence: the JAX trainer's ``jax_debug_nans``
+raises at the jitted primitive that makes the NaN, forward or backward.
 
 Every ``vis_every_n_epochs`` epochs (make_vis_hook) it draws the 2D joints
 that the model predicts for the first sample of the epoch's last training
@@ -63,6 +70,7 @@ and val.json. A SIGTERM to any rank stops every rank at the same step
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import signal
@@ -115,6 +123,17 @@ HOST_ONLY = ("full_rgb", "full_jpeg", "mv_sample_id", "root_idx", "intrinsic_mat
 AUGMENT_SEED = 42  # the n-th prepared batch augments from seed AUGMENT_SEED + n
 
 
+def batch_frames(batch: dict, device: torch.device) -> torch.Tensor:
+    """A collated batch's full frames, uint8 [B, V, H, W, 3] on ``device``:
+    its JPEG bytes decoded there (one nvJPEG call on a card), or the frames
+    the CPU reader decoded."""
+    if "full_jpeg" in batch:
+        flat = [jpeg for views in batch["full_jpeg"] for jpeg in views]
+        frames = decode_jpeg(flat, device)
+        return frames.reshape(len(batch["full_jpeg"]), -1, *frames.shape[1:])
+    return torch.from_numpy(batch["full_rgb"]).to(device)
+
+
 def make_device_prepare(cfg: Config, device: str | torch.device = "cuda",
                         augment: bool = False):
     """Collated batch -> batch on ``device``: the frames there (JPEG bytes
@@ -130,12 +149,7 @@ def make_device_prepare(cfg: Config, device: str | torch.device = "cuda",
 
     def prepare(batch: dict) -> dict:
         nonlocal prepared
-        if "full_jpeg" in batch:
-            flat = [jpeg for views in batch["full_jpeg"] for jpeg in views]
-            frames = decode_jpeg(flat, device)
-            frames = frames.reshape(len(batch["full_jpeg"]), -1, *frames.shape[1:])
-        else:
-            frames = torch.from_numpy(batch["full_rgb"]).to(device)
+        frames = batch_frames(batch, device)
         any_visible = torch.from_numpy(~np.all(batch["joints_img_mask"], axis=-1)).to(device)
         out = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
                for k, v in batch.items() if k not in HOST_ONLY}
@@ -278,6 +292,9 @@ def main(argv=None) -> None:
                         help="train data-parallel over N ranks of this host, one a device "
                              "(default: the config's train.num_devices, else every card; "
                              "not under torchrun, which starts the ranks itself)")
+    parser.add_argument("--detect-anomaly", action="store_true",
+                        help="raise where the backward makes a NaN, naming its forward op "
+                             "(torch.autograd.detect_anomaly with check_nan)")
     argv = sys.argv[1:] if argv is None else list(argv)
     args = parser.parse_args(argv)
 
@@ -301,6 +318,13 @@ def main(argv=None) -> None:
 
 
 def _train(args, device: torch.device, group: dist.ProcessGroup | None = None) -> None:
+    anomaly = torch.autograd.detect_anomaly(check_nan=True) if args.detect_anomaly \
+        else contextlib.nullcontext()
+    with anomaly:
+        _fit(args, device, group)
+
+
+def _fit(args, device: torch.device, group: dist.ProcessGroup | None = None) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rank, world = rank_and_world(group)
@@ -326,7 +350,7 @@ def _train(args, device: torch.device, group: dist.ProcessGroup | None = None) -
         train_loader.steps_per_epoch = args.steps_per_epoch
     steps_per_epoch = len(train_loader)
 
-    model = build_model(cfg, str(device), seed)
+    model = build_model(cfg, str(device), seed, accum_steps=accum)
     load_pretrained_backbone(model, cfg)
     if group is not None:
         broadcast_module_(model, group)
@@ -341,7 +365,8 @@ def _train(args, device: torch.device, group: dist.ProcessGroup | None = None) -
         n_params = sum(p.numel() for p in state.model.parameters())
         ranks = f" on each of {world} ranks" if group is not None else ""
         print(f"params: {n_params / 1e6:.2f}M; batch {bs} x {cfg.data.num_views} views{ranks}, "
-              f"accumulation {accum}, {steps_per_epoch} steps an epoch, "
+              f"accumulation {accum}, remat {state.model.backbone.remat}, "
+              f"{steps_per_epoch} steps an epoch, "
               f"{cfg.train.compute_dtype}, device {device}", flush=True)
     vertices_fn = make_vertices_fn(cfg, str(device)) if cfg.model.get_vertices else None
     generator = torch.Generator(device)

@@ -4,11 +4,13 @@
 
 The whole optimizer step (forward, the loss with its reprojection terms,
 backward, clipping, AdamW) of the config's model at full width, on one fixed
-synthetic batch, accumulation 1, dropout on. Warmup steps first, then
-``--iters`` steps back to back between two CUDA events, with no host read
-until the end. Prints the card's name and power limit (nvidia-smi), then
-one JSON line: ms a step, samples/s, images/s, the final loss, the peak of
-allocated device memory, and the card. fp32 is full fp32 (TF32 off).
+synthetic batch, accumulation 1, dropout on, with the backbone's remat as
+``train.remat`` resolves for that batch (train_step.resolve_remat). Warmup
+steps first, then ``--iters`` steps back to back between two CUDA events,
+with no host read until the end. Prints the card's name and power limit
+(nvidia-smi), then one JSON line: ms a step, samples/s, images/s, the final
+loss, the peak of allocated device memory, whether the backbone remats, and
+the card. fp32 is full fp32 (TF32 off).
 """
 
 from __future__ import annotations
@@ -51,7 +53,8 @@ def bench(cfg: Config, batch_size: int, views: int, iters: int) -> dict:
     ms = start.elapsed_time(end) / iters
     return {
         "dtype": cfg.train.compute_dtype, "batch": batch_size, "views": views,
-        "accumulation": 1, "iters": iters, "ms_per_step": ms,
+        "accumulation": 1, "remat": state.model.backbone.remat, "iters": iters,
+        "ms_per_step": ms,
         "samples_per_s": batch_size / ms * 1e3, "images_per_s": batch_size * views / ms * 1e3,
         "final_loss": float(losses["loss"]),
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,

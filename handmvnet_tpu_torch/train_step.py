@@ -27,6 +27,10 @@ sees the averaged gradients, as optax's does, and the ranks' parameters and
 statistics stay bitwise equal. No DistributedDataParallel wrapper: the bf16
 forward goes through ``functional_call``, never through its ``forward``, and
 it would all-reduce at every microbatch's backward.
+
+``train.remat`` (``resolve_remat``) checkpoints the backbone's blocks: "on"
+and "off" force it, "auto" turns it on where a microbatch's images exceed
+the remat-free anchor measured on the card for the backbone and dtype.
 """
 
 from __future__ import annotations
@@ -53,16 +57,57 @@ class TrainState:
     step: int = 0  # optimizer steps taken
 
 
+# The most images a microbatch of each (backbone, compute dtype) trains
+# without remat: where the remat-free step's peak of allocated memory, fitted
+# as fixed + bytes an image over 40, 80 and 160 images, reaches 0.85 of the
+# card's 85.0e9 bytes (remat_probe.py on one H100 80GB HBM3 at 700 W; the fit
+# in PERF.md). The JAX package's 80 images (halved for fp32) were a 16 GB
+# v5e's and do not carry over.
+REMAT_FREE_IMAGES = {
+    ("resnet", "float32"): 407,  # 0.701 GB + 175.75 MB an image
+    ("resnet", "bfloat16"): 774,  # 0.337 GB + 92.83 MB
+    ("hrnet", "float32"): 296,  # 0.928 GB + 240.66 MB
+    ("hrnet", "bfloat16"): 581,  # 0.841 GB + 122.86 MB
+}
+
+
+def resolve_remat(cfg: Config, accum_steps: int = 1, *, batch_size: int | None = None,
+                  num_views: int | None = None) -> bool:
+    """The train step's remat policy, ``train.remat``, as the JAX package's
+    (handmvnet_tpu/parallel/train_step.py:155-188): "on"/"true" and
+    "off"/"false" force it; "auto" turns it on where a microbatch's images
+    (ceil(batch / accum_steps) x views) exceed ``REMAT_FREE_IMAGES`` of the
+    backbone and compute dtype (0, so on, where none was measured); anything
+    else raises ValueError. ``batch_size`` and ``num_views`` stand in for
+    the config's where a caller's batches have other shapes. Each rank takes
+    the config's whole batch (train.py), so the world size changes the
+    microbatch only through ``accum_steps`` (train.accumulation), where the
+    JAX package's one process splits the batch over its devices."""
+    setting = str(cfg.train.remat).lower()
+    if setting in ("on", "true"):
+        return True
+    if setting in ("off", "false"):
+        return False
+    if setting != "auto":
+        raise ValueError(f"train.remat must be auto/on/off, got {cfg.train.remat!r}")
+    batch = cfg.data.batch_size if batch_size is None else batch_size
+    views = cfg.data.num_views if num_views is None else num_views
+    images = -(-batch // max(1, accum_steps)) * views
+    return images > REMAT_FREE_IMAGES.get((cfg.model.backbone, cfg.train.compute_dtype), 0)
+
+
 def build_model(cfg: Config, device: str = "cuda", seed: int = 0,
-                dropout: float = 0.1) -> HandMvNet:
+                dropout: float = 0.1, accum_steps: int = 1) -> HandMvNet:
     """The config's model with PyTorch's default initialisation drawn under
     ``seed``, in fp32 on ``device``; with ``train.root_relative`` off it has
-    the absolute-root branch."""
+    the absolute-root branch; its backbone remats as ``resolve_remat``
+    decides for microbatches of ``accum_steps``."""
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         model = HandMvNet(cfg.model, image_size=cfg.data.image_size,
                           heatmap_size=cfg.data.heatmap_size, dropout=dropout,
-                          root_relative=cfg.train.root_relative)
+                          root_relative=cfg.train.root_relative,
+                          remat=resolve_remat(cfg, accum_steps))
     return model.to(device)
 
 

@@ -1,7 +1,7 @@
 """Port parity, the user-facing drivers: handmvnet_tpu_torch.infer against
 handmvnet_tpu's infer step (model.apply, then joints_to_vertices_fn) on
-shared weights, ``infer.main --device cpu`` end to end, its refusals, the
-``model.backbone_int8`` refusal, and the rank counts of train.py
+shared weights, ``infer.main --device cpu`` end to end, its refusals, where
+``model.backbone_int8`` takes effect, and the rank counts of train.py
 (``train.num_devices``) and eval.py (the divisor rule) against the JAX
 drivers' rules, on the CPU.
 
@@ -228,15 +228,19 @@ def test_entry_points_default_to_the_card(setup):
 
 def test_backbone_int8_refused_on_resnet_ignored_on_hrnet():
     """JAX quantises the ResNet backbone's convs in eval mode under the flag
-    (handmvnet_tpu/models/handmvnet.py:70) and ignores it on HRNet (:59-62):
-    the port refuses it on ResNet, naming the ROADMAP item, rather than
-    serve exact fp32 in its place."""
+    (handmvnet_tpu/models/handmvnet.py:70) and ignores it on HRNet (:59-62).
+    The port refused it on ResNet until ops/quant.py landed; now the ResNet
+    model is built with the int8 convs (Q8Conv, tests/test_torch_quant.py
+    holds them against JAX's), and HRNet still ignores the flag."""
+    from handmvnet_tpu_torch.ops.quant import Q8Conv
+
     cfg = Config.from_yaml(ROOT / "configs" / "release" / "HO3D_HandMvNet.yaml")
-    with pytest.raises(NotImplementedError,
-                       match="ops/quant.py, the int8 PTQ behind model.backbone_int8"):
-        HandMvNet(dataclasses.replace(cfg.model, backbone_int8=True))
+    model = HandMvNet(dataclasses.replace(cfg.model, backbone_int8=True))
+    assert any(isinstance(m, Q8Conv) for m in model.backbone.modules())
+    assert not any(isinstance(m, Q8Conv) for m in HandMvNet(cfg.model).modules())
     hr = Config.from_yaml(ROOT / "configs" / "release" / "HO3D_HandMvNet_HR.yaml")
-    HandMvNet(dataclasses.replace(hr.model, backbone_int8=True))
+    assert not any(isinstance(m, Q8Conv)
+                   for m in HandMvNet(dataclasses.replace(hr.model, backbone_int8=True)).modules())
 
 
 # ------------------------------------------------------------------ rank counts
