@@ -184,7 +184,29 @@ Phases; any failure exits nonzero and prints no result:
      K1 10 and K2 2 (HR 0) launches a step with remat on, the ms a step
      and peak memory both ways, and resolve_remat's "auto" at every
      release config's shapes (off at all of them);
- 15. a {"kernels": [...]} line (the /int8 and /remat rows phase 14's;
+ 15. the downscaled decode and the decode cache, on phase 9's train shards
+     beside 3 test shards of 16 written on the card (every split whole
+     batches of 16), fp32 unless said: (a) data/jpeg.py's downscale_frames at
+     d = 2, 4 and 8 on the card bitwise equal to the CPU on the same frames
+     (the fixture decoded by nvJPEG at batch 1 and 80, a val batch of the
+     shards), nvJPEG + downscale against the fixture's cv2 pixels
+     downscaled on the CPU (phase 8's nvJPEG limits), its device ms;
+     eval.py and 2 training steps with decode_scale_denom 2 (phase 8's and
+     9's launch and finiteness checks); (b) with cache_decoded: eval.py
+     without the cache, with it cold (it builds the val and test stores)
+     and warm, under deterministic algorithms: the metrics and launches
+     bitwise equal, nvJPEG calls only the build's (a batch a call) and none
+     warm; every stored frame bitwise nvJPEG's decode of its JPEGs, in the
+     reader's order; train.py on the shards for 2 epochs cold (its first
+     epoch builds the stores) against warm, no augmentation (its box blur's
+     float cumsum has no deterministic CUDA kernel), under deterministic
+     algorithms: loss terms and gradient norms of every step bitwise equal,
+     no nvJPEG call warm; augmented runs from the stores, ms a step beside
+     phase 9's and phase 6's: fp32 once, bf16 in turns with runs without
+     the cache (without, with, with, without); the train loader's samples/s
+     cold and warm and the store's bytes on disk;
+ 16. a {"kernels": [...]} line (the /denom and /cache rows phase 15's; the
+     /int8 and /remat rows phase 14's;
      the HR rows carry K1's launches on the HR
      paths, the /eval rows the launches of phase 8's eval runs, the
      /train_shards rows phase 9's, the /train_dp rows phase 10's, the
@@ -294,6 +316,12 @@ HOURGLASS_REL = 1e-4
 TRI_BATCH, TRI_VIEWS, TRI_REL = 16, 8, 1e-5
 INT8_CORR, INT8_MEDIAN_PX = 0.98, 4.0
 REMAT_STEPS, REMAT_WARMUP, REMAT_ITERS, REMAT_REL = 2, 2, 5, 1e-6
+# the decode cache and the downscaled decode (phase 15): the downscale's factors;
+# phase 9's train shards beside 3 test shards of 16 (eval.py reads the test split),
+# so that every split is whole batches of 16 and the cache's build decodes the
+# loader's own batches (nvJPEG's pixels depend on a batch's size)
+DENOMS = (2, 4, 8)
+CACHE_TEST_SHARDS = 3
 
 
 def fail(msg: str) -> None:
@@ -1119,7 +1147,7 @@ def augmentation_check(cfg, card_line: str) -> None:
           f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms; {card_line}", flush=True)
 
 
-def train_loader_rate(cfg, eval_loader_sps: float, step_sps: float, card_line: str) -> None:
+def train_loader_rate(cfg, eval_loader_sps: float, step_sps: float, card_line: str) -> float:
     """samples/s of the train loader alone (build_dataloaders: the resampled
     stream, nvJPEG, crops, augmentation, heatmaps, on the preparer stage)
     over THROUGHPUT_BATCHES batches after one."""
@@ -1141,6 +1169,7 @@ def train_loader_rate(cfg, eval_loader_sps: float, step_sps: float, card_line: s
           f"{step_sps:.2f}); {card_line}", flush=True)
     if tuple(batch["rgb"].shape) != (EVAL_BATCH, EVAL_VIEWS, 256, 256, 3):
         fail(f"train loader: rgb {tuple(batch['rgb'].shape)}")
+    return sps
 
 
 def shard_train_run(attention_ops, stem_ops, config: Path, out_dir: Path, label: str,
@@ -1155,18 +1184,22 @@ def shard_train_run(attention_ops, stem_ops, config: Path, out_dir: Path, label:
     device's time per step, waits for data included. ``device_prefetch``
     False prepares each batch on the consumer's thread (this run is the one
     caller of that setting). ``extra_forwards``: eval forwards beyond the
-    validations' (the vis hook's), each K1 5 and K2 ``stem_per_step // 2``."""
+    validations' (the vis hook's), each K1 5 and K2 ``stem_per_step // 2``.
+    Returns each step's loss terms and gradient norm (before clipping) too,
+    and the nvJPEG calls of the run."""
     import functools
 
     from handmvnet_tpu_torch import train as train_mod
+    from handmvnet_tpu_torch import train_step as train_step_mod
     from handmvnet_tpu_torch.config import Config
+    from handmvnet_tpu_torch.data.jpeg import decode_jpeg
     from handmvnet_tpu_torch.data.loader import BatchLoader
 
     cfg = Config.from_yaml(config)
     spe = next((int(a) for a, b in zip(args[1:], args) if b == "--steps-per-epoch"),
                cfg.data.split_size("train") // cfg.data.batch_size)
-    ends, per_step = [], []
-    real_step = train_mod.train_step
+    ends, per_step, losses, norms = [], [], [], []
+    real_step, real_optimizer_step = train_mod.train_step, train_step_mod.optimizer_step
 
     def timed_step(state, *a, **k):
         before = (attention_ops.fused_attention.launches, stem_ops.stem_conv_nchw.launches)
@@ -1175,24 +1208,34 @@ def shard_train_run(attention_ops, stem_ops, config: Path, out_dir: Path, label:
                          stem_ops.stem_conv_nchw.launches - before[1]))
         ends.append(torch.cuda.Event(enable_timing=True))
         ends[-1].record()
+        losses.append({key: value.detach() for key, value in out.items()})
         return out
+
+    def recorded_optimizer_step(state, cfg):
+        norm = real_optimizer_step(state, cfg)
+        norms.append(norm.detach())
+        return norm
 
     records_before = 0
     metrics = out_dir / "metrics.jsonl"
     if metrics.exists():
         records_before = len(metrics.read_text().splitlines())
     train_mod.train_step = timed_step
+    train_step_mod.optimizer_step = recorded_optimizer_step
     if not device_prefetch:
         train_mod.BatchLoader = functools.partial(BatchLoader, device_prefetch=False)
     attention_ops.fused_attention.launches = 0
     stem_ops.stem_conv_nchw.launches = 0
+    decode_jpeg.calls = 0
     t0 = time.perf_counter()
     try:
         train_mod.main(["--config", str(config), "--output-dir", str(out_dir), *args])
     finally:
         train_mod.train_step = real_step
+        train_step_mod.optimizer_step = real_optimizer_step
         train_mod.BatchLoader = BatchLoader
     torch.cuda.synchronize()
+    decodes = decode_jpeg.calls
     secs = time.perf_counter() - t0
     got = (attention_ops.fused_attention.launches, stem_ops.stem_conv_nchw.launches)
     steps = len(ends)
@@ -1221,7 +1264,9 @@ def shard_train_run(attention_ops, stem_ops, config: Path, out_dir: Path, label:
     if not records or not all(math.isfinite(v) for v in values):
         fail(f"{label}: a logged value is not finite: {records}")
     return {"ms": ms, "sps": bs / ms * 1e3, "launches": got, "steps": steps, "secs": secs,
-            "records": records}
+            "records": records, "decodes": decodes,
+            "losses": [{key: float(value) for key, value in step.items()} for step in losses],
+            "norms": [float(norm) for norm in norms]}
 
 
 def shard_training_phase(attention_ops, stem_ops, train: dict, evals: dict,
@@ -1253,7 +1298,7 @@ def shard_training_phase(attention_ops, stem_ops, train: dict, evals: dict,
 
     augmentation_check(cfg, card_line)
     fp32_step_sps = TRAIN_BATCH / train[torch.float32]["ms"] * 1e3
-    train_loader_rate(cfg, evals["ResNet"]["loader_sps"], fp32_step_sps, card_line)
+    loader_sps = train_loader_rate(cfg, evals["ResNet"]["loader_sps"], fp32_step_sps, card_line)
 
     runs = {}
     epochs = ["--epochs", str(SHARD_EPOCHS)]
@@ -1294,6 +1339,7 @@ def shard_training_phase(attention_ops, stem_ops, train: dict, evals: dict,
     runs["hr"] = shard_train_run(attention_ops, stem_ops, hr_config, tmp / "hr",
                                  "HR training on shards float32",
                                  ["--epochs", "1", "--steps-per-epoch", "2"], stem_per_step=0)
+    runs["loader"] = {"sps": loader_sps}
     return runs, configs
 
 
@@ -2716,6 +2762,250 @@ def tooling_phase(attention_ops, stem_ops, card_line: str) -> dict:
     return out
 
 
+def config_variant(path: Path, name: str, augment: bool = True, **data) -> Path:
+    """A copy of the config ``path`` beside it, ``name``.yaml, with the
+    options ``data`` added to its data: section and, without ``augment``,
+    the augmentation off."""
+    lines = "".join(f"\n  {k}: {json.dumps(v) if isinstance(v, bool) else v}"
+                    for k, v in data.items())
+    text, n = re.subn(r"(?m)^data:$", "data:" + lines, path.read_text())
+    m = 1
+    if not augment:
+        text, m = re.subn(r"(?m)^  augment: true$", "  augment: false", text)
+    if (n, m) != (1, 1):
+        fail(f"{path.name}: no data: or augment: true line for the options {data}")
+    out = path.parent / f"{name}.yaml"
+    out.write_text(text)
+    return out
+
+
+def downscale_check(cfg, card_line: str) -> dict:
+    """Phase 15 (a): downscale_frames at DENOMS on the card against the CPU
+    on the same frames (bitwise), nvJPEG's decode of the fixture at batch 1
+    and 80 and one val batch of the shards; the fixture decoded by nvJPEG and
+    downscaled on the card against its cv2 pixels downscaled on the CPU
+    (phase 8's nvJPEG limits); the downscale's device ms on that batch."""
+    from handmvnet_tpu_torch.data import jpeg
+    from handmvnet_tpu_torch.data.ho3d import HO3DDataset
+    from handmvnet_tpu_torch.data.loader import BatchLoader
+
+    payload, ref = jpeg.jpeg_fixture()
+    batch = next(iter(BatchLoader(HO3DDataset(cfg.data, "val", device="cuda"), EVAL_BATCH, 1)))
+    frames = {n: jpeg.decode_jpeg([payload] * n, "cuda") for n in (1, EVAL_BATCH * EVAL_VIEWS)}
+    shard = jpeg.decode_jpeg([p for views in batch["full_jpeg"] for p in views], "cuda")
+    out = {}
+    for d in DENOMS:
+        for what, x in (("the fixture at batch 1", frames[1]),
+                        ("the fixture at batch 80", frames[EVAL_BATCH * EVAL_VIEWS]),
+                        ("a val batch of the shards", shard)):
+            on_card = jpeg.downscale_frames(x, d).cpu()
+            if not torch.equal(on_card, jpeg.downscale_frames(x.cpu(), d)):
+                fail(f"downscale_frames at d = {d} on the card differs from the CPU on {what}")
+        want = jpeg.downscale_frames(torch.from_numpy(ref)[None], d).numpy().astype(np.int16)
+        worst = (0, 0.0)
+        for n, x in frames.items():
+            diff = np.abs(jpeg.downscale_frames(x, d).cpu().numpy().astype(np.int16) - want)
+            worst = (max(worst[0], int(diff.max())), max(worst[1], float(diff.mean())))
+        if not (worst[0] <= jpeg.NVJPEG_MAX_ABS_DIFF and worst[1] <= jpeg.NVJPEG_MEAN_ABS_DIFF):
+            fail(f"nvJPEG + downscale at d = {d} is off the fixture's cv2 pixels: {worst}")
+        jpeg.downscale_frames(shard, d)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(20):
+            jpeg.downscale_frames(shard, d)
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end) / 20
+        nbytes = shard.numel() * (1 + 1 / d ** 2)
+        print(f"downscale d = {d}: card = CPU bitwise on the fixture (batch 1, 80) and a val "
+              f"batch; nvJPEG + downscale vs the fixture's cv2 pixels downscaled: max_abs="
+              f"{worst[0]} (limit {jpeg.NVJPEG_MAX_ABS_DIFF}) mean_abs={worst[1]:.4f} (limit "
+              f"{jpeg.NVJPEG_MEAN_ABS_DIFF}); {shard.shape[0]} frames in {ms:.4f} device ms "
+              f"(one read and one write at HBM rate {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms); "
+              f"{card_line}", flush=True)
+        out[d] = {"ms": ms, "max_abs": worst[0], "mean_abs": worst[1]}
+    return out
+
+
+def cache_frames_check(cfg, cached_cfg) -> None:
+    """Phase 15 (b): every frame of the val and test stores that eval.py
+    built (its by_sample readers) bitwise equal to nvJPEG's decode of the
+    same JPEGs in the same batches of ``batch_size`` samples, the samples
+    in the order of the reader without the cache."""
+    from handmvnet_tpu_torch.data.ho3d import HO3DDataset
+    from handmvnet_tpu_torch.data.jpeg import decode_jpeg
+
+    bs = cfg.data.batch_size
+    for split in ("val", "test"):
+        store = HO3DDataset(cached_cfg.data, split, device="cuda", by_sample=True)._cache()
+        if not store.complete:
+            fail(f"eval.py with cache_decoded built no {split} store at {store.dir}")
+        cached = list(store.iter_samples())
+        plain = list(HO3DDataset(cfg.data, split, device="cuda", by_sample=True))
+        if [s["mv_sample_id"] for s in cached] != [s["mv_sample_id"] for s in plain]:
+            fail(f"the {split} store's samples or their order differ from the reader's")
+        for i in range(0, len(plain), bs):
+            chunk = plain[i:i + bs]
+            frames = decode_jpeg([p for s in chunk for p in s["full_jpeg"]], "cuda").cpu()
+            want = frames.reshape(len(chunk), -1, *frames.shape[1:]).numpy()
+            if not all(np.array_equal(c["full_rgb"], w) for c, w in zip(cached[i:i + bs], want)):
+                fail(f"the {split} store's frames differ from nvJPEG's decode of its JPEGs")
+        print(f"cache {split} store: {len(cached)} samples of {tuple(cached[0]['full_rgb'].shape)}"
+              f", every frame bitwise nvJPEG's, in the reader's order", flush=True)
+
+
+def cache_loader_rate(config: Path, phase9_sps: float, card_line: str) -> dict:
+    """Phase 15 (b): samples/s of the train loader (augmented, as phase 9's)
+    over one pass of the split from a store it builds (cold: the build
+    included) and again from the built store (warm), and the store's bytes
+    on disk."""
+    from handmvnet_tpu_torch.config import Config
+    from handmvnet_tpu_torch.train import build_dataloaders
+
+    cfg = Config.from_yaml(config)
+    rates = {}
+    for run in ("cold", "warm"):
+        (loader,) = build_dataloaders(cfg, "cuda", ("train",))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in loader:
+            pass
+        torch.cuda.synchronize()
+        rates[run] = len(loader) * cfg.data.batch_size / (time.perf_counter() - t0)
+    nbytes = sum(f.stat().st_size for f in Path(cfg.data.decoded_cache_dir).rglob("*")
+                 if f.is_file())
+    print(f"train loader from the decode cache, {len(loader)} batches of {cfg.data.batch_size} x "
+          f"{EVAL_VIEWS} views (one pass): cold (the build included) {rates['cold']:.2f} "
+          f"samples/s, warm {rates['warm']:.2f} samples/s (phase 9's without the cache "
+          f"{phase9_sps:.2f}); the store {nbytes / 1e6:.1f} MB on disk; {card_line}", flush=True)
+    return {**rates, "bytes": nbytes}
+
+
+def cache_phase(attention_ops, stem_ops, train: dict, evals: dict, shards: dict,
+                card_line: str, phase9: Path, tmp: Path) -> dict:
+    """Phase 15 (see the module docstring) in the new directory ``tmp``, on
+    phase 9's shards in ``phase9``. Returns the kernel rows' launches and
+    the figures."""
+    from handmvnet_tpu_torch.config import Config
+    from handmvnet_tpu_torch.data.jpeg import decode_jpeg
+    from handmvnet_tpu_torch.data.synthetic import write_synthetic_ho3d_shards
+
+    (tmp / "data").mkdir(parents=True)
+    for shard in sorted((phase9 / "data").glob("*.tar")):
+        (tmp / "data" / shard.name).symlink_to(shard)
+    write_synthetic_ho3d_shards(tmp / "data", num_shards=CACHE_TEST_SHARDS,
+                                samples_per_shard=SHARD_TRAIN_SAMPLES, num_views=EVAL_VIEWS,
+                                split="test", seed=15, consistent_geometry=True, device="cuda")
+    n = 9 * SHARD_TRAIN_SAMPLES
+    sizes = {"train+val": n, "val": 2 * SHARD_TRAIN_SAMPLES,
+             "test": CACHE_TEST_SHARDS * SHARD_TRAIN_SAMPLES}
+    base = write_eval_config(CONFIG, tmp, tmp / "data", phase9 / "MANO_RIGHT.npz", sizes)
+    cfg = Config.from_yaml(base)
+    ckpt = tmp / "reference.pth"
+    shutil.copy(evals["ResNet"]["ckpt"], ckpt)
+    launches = {"denom": [0, 0], "cache": {d: [0, 0] for d in DTYPES}}
+
+    def count(key, got, dtype_name="float32"):
+        row = launches[key] if key == "denom" else launches[key][dtype_name]
+        row[0] += got[0]
+        row[1] += got[1]
+
+    # (a) the downscaled decode
+    t0 = time.perf_counter()
+    out = {"downscale": downscale_check(cfg, card_line)}
+    denom2 = config_variant(base, "denom2", decode_scale_denom=2)
+    got, _ = eval_run(attention_ops, stem_ops, denom2, ckpt, "decode_scale_denom 2", 1)
+    count("denom", got)
+    run = shard_train_run(attention_ops, stem_ops, denom2, tmp / "denom2",
+                          "training on shards float32, decode_scale_denom 2",
+                          ["--epochs", "1", "--steps-per-epoch", "2"], stem_per_step=2)
+    count("denom", run["launches"])
+    print(f"phase 15 (a) (the downscaled decode): {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # (b) the decode cache: eval.py without, with (cold: it builds), with (warm)
+    t0 = time.perf_counter()
+    evals_cached = config_variant(base, "eval_cached", cache_decoded=True,
+                                  cache_dir=tmp / "eval_cache")
+    with deterministic():
+        plain = eval_run(attention_ops, stem_ops, base, ckpt, "without the cache", 1)
+        decode_jpeg.calls = 0
+        cold = eval_run(attention_ops, stem_ops, evals_cached, ckpt, "with the cache, cold", 1)
+        cold_decodes = decode_jpeg.calls
+        cache_frames_check(cfg, Config.from_yaml(evals_cached))
+        decode_jpeg.calls = 0
+        warm = eval_run(attention_ops, stem_ops, evals_cached, ckpt, "with the cache, warm", 1)
+        warm_decodes = decode_jpeg.calls
+    for result in (cold, warm):
+        count("cache", result[0])
+    builds = math.ceil(sizes["val"] / EVAL_BATCH) + math.ceil(sizes["test"] / EVAL_BATCH)
+    print(f"eval.py with the cache against without: metrics bitwise equal cold "
+          f"{cold[1] == plain[1]}, warm {warm[1] == plain[1]}; launches {plain[0]} / {cold[0]} / "
+          f"{warm[0]}; nvJPEG calls cold {cold_decodes} (the build's {builds}), warm "
+          f"{warm_decodes}", flush=True)
+    if not (cold[1] == plain[1] == warm[1] and cold[0] == plain[0] == warm[0]
+            and cold_decodes == builds and warm_decodes == 0):
+        fail("eval.py with the decode cache differs from eval.py without it")
+
+    # training cold (the first epoch builds) against warm (the same stores)
+    train_cached = config_variant(base, "train_cached_plain", augment=False, cache_decoded=True,
+                                  cache_dir=tmp / "train_cache")
+    epochs = ["--epochs", str(SHARD_EPOCHS)]
+    with deterministic():
+        pair = [shard_train_run(attention_ops, stem_ops, train_cached, tmp / name,
+                                f"training on shards float32 from the cache, {name}, no "
+                                "augmentation, deterministic", epochs, stem_per_step=2)
+                for name in ("cold", "warm")]
+    for run in pair:
+        count("cache", run["launches"])
+    cold_run, warm_run = pair
+    builds = math.ceil(n / EVAL_BATCH) + math.ceil(sizes["val"] / EVAL_BATCH)
+    same = cold_run["losses"] == warm_run["losses"] and cold_run["norms"] == warm_run["norms"]
+    print(f"training cold against warm, {len(cold_run['norms'])} steps: loss terms and "
+          f"gradient norms bitwise equal {same} (first step loss "
+          f"{cold_run['losses'][0]['loss']!r} / {warm_run['losses'][0]['loss']!r}, norm "
+          f"{cold_run['norms'][0]!r} / {warm_run['norms'][0]!r}); nvJPEG calls cold "
+          f"{cold_run['decodes']} (the builds' {builds}), warm {warm_run['decodes']}", flush=True)
+    if not same or cold_run["decodes"] != builds or warm_run["decodes"] != 0 \
+            or len(cold_run["norms"]) != cold_run["steps"]:
+        fail("training from the decode cache: the cold and the warm run differ, or a warm "
+             "epoch decoded")
+
+    # ms a step from cached frames, augmented, beside phase 9's and phase 6's; bf16,
+    # host-bound and unsteady from run to run, in turns with uncached runs
+    out["steps"] = {}
+    for name, dtype in DTYPES.items():
+        plain = write_eval_config(CONFIG, tmp, tmp / "data", phase9 / "MANO_RIGHT.npz", sizes, name)
+        cached = config_variant(plain, f"train_cached_{name}", cache_decoded=True,
+                                cache_dir=tmp / "train_cache")
+        order = ("cached",) if name == "float32" else ("uncached", "cached", "cached", "uncached")
+        ms = {"cached": [], "uncached": []}
+        for i, kind in enumerate(order):
+            run = shard_train_run(attention_ops, stem_ops, cached if kind == "cached" else plain,
+                                  tmp / f"{kind}_{name}_{i}", f"training on shards {name}, {kind}",
+                                  epochs, stem_per_step=2)
+            ms[kind].append(run["ms"])
+            if kind == "cached":
+                count("cache", run["launches"], name)
+                if run["decodes"]:
+                    fail(f"training {name} from a built store made {run['decodes']} nvJPEG calls")
+        uncached = ms["uncached"] or [shards[name]["ms"]]
+        cached_ms, uncached_ms = float(np.median(ms["cached"])), float(np.median(uncached))
+        synth = train[dtype]["ms"]
+        print(f"training {name} from the decode cache: {ms['cached']} ms a step (median "
+              f"{cached_ms:.3f}, {TRAIN_BATCH / cached_ms * 1e3:.2f} samples/s); without it "
+              f"{uncached} ms ({'in turns, ' if ms['uncached'] else ''}phase 9's "
+              f"{shards[name]['ms']:.3f}); phase 6's synthetic step {synth:.3f} ms: ratios "
+              f"{cached_ms / uncached_ms:.3f} and {cached_ms / synth:.3f}; {card_line}", flush=True)
+        out["steps"][name] = {"ms": cached_ms, "uncached_ms": uncached_ms,
+                              "runs_ms": ms["cached"], "uncached_runs_ms": uncached}
+    out["loader"] = cache_loader_rate(
+        config_variant(base, "loader_cached", cache_decoded=True, cache_dir=tmp / "loader_cache"),
+        shards["loader"]["sps"], card_line)
+    print(f"phase 15 (b) (the decode cache): {time.perf_counter() - t0:.1f} s", flush=True)
+    out["launches"] = launches
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: chip_smoke.py runs the port on an NVIDIA GPU only")
@@ -2871,18 +3161,27 @@ def main() -> None:
         serving["stem"] = check_stem(stem_ops, torch.float32, gen, (8 // VIEW_RANKS, 256, 256))
         print(f"phase 12 (serving structure): {time.perf_counter() - t_phase:.1f} s", flush=True)
 
-    # 13. the rest of the model family: the default ResNets, the learnable-query
-    # fusion, the absolute-root branch, the hourglasses
-    t_phase = time.perf_counter()
-    family = family_phase(attention_ops, stem_ops, gen, card_line)
-    print(f"phase 13 (model family): {time.perf_counter() - t_phase:.1f} s", flush=True)
+        # 13. the rest of the model family: the default ResNets, the learnable-query
+        # fusion, the absolute-root branch, the hourglasses
+        t_phase = time.perf_counter()
+        family = family_phase(attention_ops, stem_ops, gen, card_line)
+        print(f"phase 13 (model family): {time.perf_counter() - t_phase:.1f} s", flush=True)
 
-    # 14. geometry and sanity, the int8 serving path, remat
-    t_phase = time.perf_counter()
-    tooling = tooling_phase(attention_ops, stem_ops, card_line)
-    print(f"phase 14 (tooling, int8, remat): {time.perf_counter() - t_phase:.1f} s", flush=True)
+        # 14. geometry and sanity, the int8 serving path, remat
+        t_phase = time.perf_counter()
+        tooling = tooling_phase(attention_ops, stem_ops, card_line)
+        print(f"phase 14 (tooling, int8, remat): {time.perf_counter() - t_phase:.1f} s",
+              flush=True)
 
-    # 15. the record
+        # 15. the downscaled decode and the decode cache, on phase 9's shards
+        t_phase = time.perf_counter()
+        torch.cuda.empty_cache()
+        decode = cache_phase(attention_ops, stem_ops, train, evals, shards, card_line,
+                             tmp / "train", tmp / "cache")
+        print(f"phase 15 (the decode cache and the downscaled decode): "
+              f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # 16. the record
     def times(t: dict) -> dict:
         return {"ms": t["kernel"]["device"], "plain_ms": t["plain"]["device"],
                 "library_ms": t["library"]["device"], "eager_ms": t["kernel"]["eager"],
@@ -3137,6 +3436,48 @@ def main() -> None:
          "forward x [40, 3, 256, 256] (outside the checkpointed blocks)"),
         backward="torch.nn.grad.conv2d_weight", backward_ms=stem_bwd[fp32]["ms"],
         backward_max_abs_err=stem_bwd[fp32]["err"], by_model=by_model))
+    # phase 15's: train.py and eval.py on downscaled and on cached frames, at the
+    # training microbatch's shapes (validation and eval at batch 16: the /eval shapes)
+    steps = decode["steps"]
+    denom_extra = {"downscale_device_ms": {d: r["ms"] for d, r in decode["downscale"].items()},
+                   "downscale_frames": EVAL_BATCH * EVAL_VIEWS}
+    k1, k2 = decode["launches"]["denom"]
+    kernels.append(attention_record(
+        fp32, train_attn[fp32], TRAIN_ATTN_CALLS, k1,
+        ("/denom", "decode_scale_denom 2 (240 x 320 frames): eval.py and 2 training steps: "
+         "microbatch forward at batch 8 (eval and validation at batch 16): (105,105) x2 + "
+         "(21,84) + (21,21) x2"),
+        backward="PyTorch ops (ops/attention.py::attention_backward)",
+        backward_ms=attn_bwd[fp32]["ms"], backward_max_abs_err=attn_bwd[fp32]["err"],
+        **denom_extra))
+    kernels.append(stem_record(
+        fp32, train_stem[fp32], k2,
+        ("/denom", "decode_scale_denom 2: microbatch forward x [40, 3, 256, 256] (eval "
+         "[80, 3, 256, 256])"),
+        backward="torch.nn.grad.conv2d_weight", backward_ms=stem_bwd[fp32]["ms"],
+        backward_max_abs_err=stem_bwd[fp32]["err"], **denom_extra))
+    cache_extra = {"loader_samples_per_s": {k: decode["loader"][k] for k in ("cold", "warm")},
+                   "store_bytes": decode["loader"]["bytes"]}
+    for dtype in DTYPES.values():
+        name = str(dtype).removeprefix("torch.")
+        k1, k2 = decode["launches"]["cache"][name]
+        what = ("eval.py cold and warm, train.py cold and warm (no augmentation) and one "
+                "augmented run" if name == "float32" else "two augmented train.py runs")
+        extra = {**cache_extra, "ms_per_step": steps[name]["runs_ms"],
+                 "uncached_ms_per_step": steps[name]["uncached_runs_ms"]}
+        kernels.append(attention_record(
+            dtype, train_attn[dtype], TRAIN_ATTN_CALLS, k1,
+            ("/cache", f"cache_decoded, {what}: microbatch forward at batch 8 (eval and "
+             "validation at batch 16): (105,105) x2 + (21,84) + (21,21) x2"),
+            backward="PyTorch ops (ops/attention.py::attention_backward)",
+            backward_ms=attn_bwd[dtype]["ms"], backward_max_abs_err=attn_bwd[dtype]["err"],
+            **extra))
+        kernels.append(stem_record(
+            dtype, train_stem[dtype], k2,
+            ("/cache", f"cache_decoded, {what}: microbatch forward x [40, 3, 256, 256] (eval "
+             "[80, 3, 256, 256])"),
+            backward="torch.nn.grad.conv2d_weight", backward_ms=stem_bwd[dtype]["ms"],
+            backward_max_abs_err=stem_bwd[dtype]["err"], **extra))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the card check", flush=True)
     print(card_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -16,6 +16,7 @@ that subset is refused rather than misread.
 from __future__ import annotations
 
 import dataclasses
+import os
 import re
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -108,9 +109,9 @@ class DataConfig:
     mano_models_dir: str = "mano"
     num_workers: int = 6
     augment: bool = True
-    decode_scale_denom: int = 1
-    cache_decoded: bool = False
-    cache_dir: str = ""
+    decode_scale_denom: int = 1  # downscale decoded frames by d (data/jpeg.py)
+    cache_decoded: bool = False  # serve splits from the decode cache (data/cache.py)
+    cache_dir: str = ""  # default: <dataset_dir>/decoded_cache (decoded_cache_dir)
     pad_image: bool = True
     add_val_to_train: bool = False
     selected_views: tuple[int, ...] = (0, 1, 2, 3, 4)
@@ -130,6 +131,12 @@ class DataConfig:
         if split == "train" and self.add_val_to_train:
             split = "train+val"
         return sizes[split]
+
+    @property
+    def decoded_cache_dir(self) -> str:
+        """Where the decode cache keeps its stores: ``cache_dir``, else
+        ``<dataset_dir>/decoded_cache`` (handmvnet_tpu/config.py:52)."""
+        return self.cache_dir or os.path.join(self.dataset_dir, "decoded_cache")
 
 
 @dataclass(frozen=True)

@@ -20,6 +20,13 @@ The reader stops at frames and labels: on the CPU the frames come decoded
 (``full_rgb``), for a card as JPEG bytes (``full_jpeg``), which the loader's
 device_prepare decodes there. Crops, augmentation and heatmaps are made on
 the device (data/pipeline.py).
+
+``data.decode_scale_denom`` d > 1 downscales the frames by d
+(data/jpeg.py's ``downscale_frames``, cv2's INTER_AREA bit for bit): the
+CPU reader after its cv2 decode, as the JAX python reader does; on a card
+the loader after nvJPEG. d must divide both sides of ``input_res``.
+``data.cache_decoded`` serves the split from the decode cache
+(data/cache.py), built by the first pass (handmvnet_tpu/data/ho3d.py:212-288).
 """
 
 from __future__ import annotations
@@ -31,12 +38,10 @@ import numpy as np
 import torch
 
 from handmvnet_tpu_torch.config import DataConfig
+from handmvnet_tpu_torch.data.cache import DecodedCache
+from handmvnet_tpu_torch.data.jpeg import check_scale_denom, decode_jpeg, downscale_frames
 from handmvnet_tpu_torch.data.webdataset import ShardDataset, brace_expand, decode_field
 
-CACHE_TODO = ("data.cache_decoded is not ported: ROADMAP.md queue 1, \"The decode cache\"; "
-              "set cache_decoded: false")
-DENOM_TODO = ("data.decode_scale_denom > 1 is not ported: ROADMAP.md queue 1, \"The "
-              "downscaled decode\"; set decode_scale_denom: 1")
 _VIEW_KEYS = ("intrinsic", "intrinsic_mat", "extrinsic", "bboxes", "cropped_bboxes",
               "joints_img", "joints_crop_img", "all_joints_cam", "all_root_joints",
               "joints_img_mask")
@@ -109,7 +114,9 @@ class MultiviewTarDataset:
     (``full_jpeg``, one bytes object a view) for nvJPEG there; the reader
     then reads raw entries and unpickles only the labels. ``split_index`` /
     ``split_count`` pick a reader's share (``ShardDataset``); ``by_sample``
-    deals the samples out by ordinal whatever the shard count.
+    deals the samples out by ordinal whatever the shard count. With
+    ``cache_decoded`` every sample carries ``full_rgb`` from the cache, on
+    either device.
     """
 
     name = "ho3d"
@@ -122,13 +129,13 @@ class MultiviewTarDataset:
                  device: str | torch.device = "cuda", by_sample: bool = False):
         if split not in ("train", "val", "test"):
             raise ValueError(f"unknown split {split!r}")
-        if cfg.cache_decoded:
-            raise NotImplementedError(CACHE_TODO)
-        if cfg.decode_scale_denom != 1:
-            raise NotImplementedError(DENOM_TODO)
+        check_scale_denom(cfg.decode_scale_denom, self.input_res)
         self.cfg = cfg
         self.split = split
-        self.decoded = torch.device(device).type == "cpu"
+        self.device = torch.device(device)
+        self.decoded = self.device.type == "cpu"
+        self.by_sample = by_sample
+        self._split = (split_index, split_count)
         train = split == "train"
         self.dataset = ShardDataset(self._split_urls(split), preprocess=self._parse,
                                     shuffle_shards=train, resample=train,
@@ -158,14 +165,90 @@ class MultiviewTarDataset:
         labels = raw["label.pyd"] if self.decoded else decode_field("label.pyd", raw["label.pyd"])
         sample = parse_multiview_labels(labels, self.root_idx, self.input_res, views)
         if self.decoded:
-            sample["full_rgb"] = np.stack([raw[f"image_{i}.jpg"] for i in views]).astype(np.uint8)
+            frames = np.stack([raw[f"image_{i}.jpg"] for i in views]).astype(np.uint8)
+            sample["full_rgb"] = downscale_frames(torch.from_numpy(frames),
+                                                  self.cfg.decode_scale_denom).numpy()
         else:
             sample["full_jpeg"] = [raw[f"image_{i}.jpg"] for i in views]
         sample["mv_sample_id"] = os.path.join(raw["__url__"], raw["__key__"])
         return sample
 
     def __iter__(self) -> Iterator[dict]:
+        if self.cfg.cache_decoded:
+            return self._iter_cached()
         return iter(self.dataset)
+
+    # ------------------------------------------------------------ decode cache --
+    def _cache(self) -> DecodedCache:
+        """This reader's store, its identity taken at first use, while the
+        shards are there to stat. The decoder is part of it: a card's nvJPEG
+        pixels are not libjpeg's, so a card build ("nvjpeg") never shares a
+        directory with a CPU one, which records what JAX's python reader
+        records ("any" at d = 1, where libjpeg's readers agree, else
+        "python") and so shares JAX's."""
+        cached = getattr(self, "_cache_obj", None)
+        if cached is not None:
+            return cached
+
+        def stat(url: str) -> list:
+            st = os.stat(url)
+            return [os.path.basename(url), st.st_size, int(st.st_mtime)]
+
+        d = self.cfg.decode_scale_denom
+        identity = {
+            "name": self.name,
+            "split": self.split,
+            "views": list(self.cfg.selected_views),
+            "denom": d,
+            "split_slice": list(self._split),
+            "input_res": list(self.input_res),
+            "shards": [stat(u) for u in self._split_urls(self.split)],
+            "reader": "nvjpeg" if not self.decoded else ("any" if d == 1 else "python"),
+        }
+        if self.by_sample:
+            identity["by_sample"] = True
+        self._cache_obj = DecodedCache(self.cfg.decoded_cache_dir, identity)
+        return self._cache_obj
+
+    def _iter_cached(self) -> Iterator[dict]:
+        """One epoch from the store: a cold store is first built from one
+        pass over this reader's share; the train split is shuffled over the
+        whole epoch (seed 42 + epoch x 10007), val and test keep their order."""
+        cache = self._cache()
+        if not cache.complete:
+            cache.build(self._decode_once())
+        epoch = getattr(self, "_cache_epoch", 0)
+        self._cache_epoch = epoch + 1
+        return cache.iter_samples(shuffle=self.split == "train", seed=42, epoch=epoch)
+
+    def _decode_once(self) -> Iterator[dict]:
+        """This reader's share, each sample once, in shard order (no
+        resampling, no reservoir: the store shuffles), decoded."""
+        samples = iter(ShardDataset(self._split_urls(self.split), preprocess=self._parse,
+                                    split_index=self._split[0], split_count=self._split[1],
+                                    by_sample=self.by_sample, decode=self.decoded))
+        return samples if self.decoded else self._decode_on_card(samples)
+
+    def _decode_on_card(self, samples: Iterator[dict]) -> Iterator[dict]:
+        """The card's samples with ``full_rgb`` in place of ``full_jpeg``:
+        ``batch_size`` samples a nvJPEG call, as the loader decodes a batch
+        (nvJPEG's pixels depend on the batch's size), then the downscale,
+        on a stream of the build's own, so that a step queued on another
+        stream neither waits for it nor runs into it (csrc/jpeg.cpp drains
+        the stream it decodes on)."""
+        stream = torch.cuda.Stream(self.device)
+        d = self.cfg.decode_scale_denom
+        while True:
+            chunk = [s for _, s in zip(range(self.cfg.batch_size), samples)]
+            if not chunk:
+                return
+            with torch.cuda.stream(stream):
+                flat = [jpeg for s in chunk for jpeg in s["full_jpeg"]]
+                frames = downscale_frames(decode_jpeg(flat, self.device), d).cpu().numpy()
+            for sample, rgb in zip(chunk, frames.reshape(len(chunk), -1, *frames.shape[1:])):
+                sample = {k: v for k, v in sample.items() if k != "full_jpeg"}
+                sample["full_rgb"] = rgb
+                yield sample
 
 
 class HO3DDataset(MultiviewTarDataset):

@@ -11,6 +11,13 @@
 The device asked for picks the codec; nothing on the card gives way to the
 CPU. nvJPEG's IDCT and chroma upsampling are not libjpeg's, so its pixels
 differ from cv2's by a few levels (``NVJPEG_MAX_ABS_DIFF``).
+``decode_jpeg.calls`` counts its batched decodes on a card.
+
+``downscale_frames`` is the downscaled decode (``data.decode_scale_denom``):
+a d x d box mean of decoded frames, on either device, bitwise
+``cv2.resize(INTER_AREA)``, the JAX python reader's resize
+(handmvnet_tpu/data/ho3d.py:195-207). nvJPEG has no DCT-domain downscale,
+so on a card the full frame is decoded first.
 """
 
 from __future__ import annotations
@@ -118,7 +125,47 @@ def decode_jpeg(payloads: Sequence[bytes], device: str | torch.device) -> torch.
         stream = torch.cuda.current_stream(device).cuda_stream
         _build.check(lib, lib.hmv_jpeg_decode(dec, n, data, lengths, out.data_ptr(), h.value,
                                               w.value, stream), "hmv_jpeg_decode")
+        decode_jpeg.calls += 1
     return out
+
+
+decode_jpeg.calls = 0  # batched nvJPEG decodes, on any card
+
+
+def check_scale_denom(denom: int, frame_hw: tuple[int, int]) -> None:
+    """Raise ValueError unless ``denom`` divides both sides of ``frame_hw``:
+    the factors at which cv2's INTER_AREA takes its integer box path, which
+    ``downscale_frames`` reproduces. (The JAX python reader resizes at any
+    factor to ceil(side / denom); its native loader takes libjpeg's 1, 2, 4
+    and 8.)"""
+    h, w = frame_hw
+    if not (isinstance(denom, int) and denom >= 1 and h % denom == 0 and w % denom == 0):
+        raise ValueError(f"decode_scale_denom {denom!r} must be a positive integer that divides "
+                         f"both sides of the {h} x {w} frames (an integer box downscale)")
+
+
+def downscale_frames(frames: torch.Tensor, denom: int) -> torch.Tensor:
+    """uint8 [N, H, W, 3] -> [N, H / denom, W / denom, 3]: each output pixel
+    the mean of a denom x denom block, rounded as cv2.resize(INTER_AREA)
+    rounds on its integer path: half up at denom 2 ((sum + 2) >> 2), half to
+    even at every other factor (cvRound of sum / denom^2). Integer ops on
+    the frames' device, so that the card and the CPU agree bitwise."""
+    if frames.dtype != torch.uint8 or frames.dim() != 4 or frames.shape[-1] != 3:
+        raise ValueError(f"downscale_frames takes uint8 [N, H, W, 3], not {frames.dtype} "
+                         f"{tuple(frames.shape)}")
+    n, h, w, _ = frames.shape
+    check_scale_denom(denom, (h, w))
+    if denom == 1:
+        return frames
+    area = denom * denom
+    sums = frames.reshape(n, h // denom, denom, w // denom, denom, 3).to(torch.int32).sum(
+        dim=(2, 4))
+    if denom == 2:
+        return ((sums + 2) >> 2).to(torch.uint8)
+    quot = torch.div(sums, area, rounding_mode="floor")
+    twice_rem = 2 * (sums - quot * area)
+    up = (twice_rem > area) | ((twice_rem == area) & (quot % 2 == 1))
+    return (quot + up.to(torch.int32)).to(torch.uint8)
 
 
 def encode_jpeg(images: torch.Tensor) -> list[bytes]:

@@ -26,15 +26,18 @@ from handmvnet_tpu_torch.ops.resize import crop_resize, mask_normalize
 def preprocess_views(full_rgb: torch.Tensor, bboxes: torch.Tensor, joints_crop: torch.Tensor,
                      any_visible: torch.Tensor, *, image_size: int = 256,
                      heatmap_size: int = 32, augment: bool = False,
-                     generator: torch.Generator | None = None
+                     generator: torch.Generator | None = None, box_scale_denom: int = 1
                      ) -> tuple[torch.Tensor, torch.Tensor]:
-    """full_rgb: [B, V, H, W, 3] uint8 frames; bboxes: [B, V, 4] integer-valued
-    xyxy crop boxes (unclamped, as the reference crops); joints_crop:
+    """full_rgb: [B, V, H, W, 3] uint8 frames; bboxes: [B, V, 4] xyxy crop
+    boxes in the frames' pixels (unclamped, as the reference crops; integers,
+    or the labels' integers / d on frames downscaled by d); joints_crop:
     [B, V, J, 2] crop-space 2D joints; any_visible: [B, V] bool, False for the
     black-image rule. All on one device. With ``augment``, each crop is
     augmented from ``generator`` (on that device) at its magnification
     image_size / box side, as the reference augments the crop before its
-    resize.
+    resize; the side is the source frame's, the box's times
+    ``box_scale_denom`` (the decode_scale_denom d of the frames), so that
+    the augmentation does not change with d (handmvnet_tpu/data/pipeline.py:62-71).
 
     Returns (rgb [B, V, S, S, 3] float32 normalised, heatmap
     [B, V, J, h, h] float32), the batch layout the model and the losses take.
@@ -45,7 +48,8 @@ def preprocess_views(full_rgb: torch.Tensor, bboxes: torch.Tensor, joints_crop: 
     if augment:
         if generator is None:
             raise ValueError("preprocess_views(augment=True) needs a generator")
-        sides = torch.clamp((boxes[:, 2] - boxes[:, 0]).to(torch.float32), min=1.0)
+        sides = torch.clamp((boxes[:, 2] - boxes[:, 0]).to(torch.float32)
+                            * float(box_scale_denom), min=1.0)
         crops = augment_batch(crops, generator, image_size / sides)
     rgb = mask_normalize(crops, any_visible.reshape(b * v))
     heatmaps = render_gaussian_heatmaps_resized(

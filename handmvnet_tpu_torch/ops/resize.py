@@ -13,9 +13,10 @@ upsample_bilinear2d_aa uses:
 labels). ``crop_resize`` and ``mask_normalize`` are the reference's
 crop_and_pad_image + Resize, then Normalize, of the loader
 (src/datasets/ho3d.py:136-153) for a batch of frames, with the train split's
-augmentation between them: the integer crop of each view's box folds into
-its own weight matrices, built on the device, and pixels outside the frame
-act as zero padding.
+augmentation between them: the crop of each view's box (integer, or
+fractional where the downscaled decode divides it) folds into its own
+weight matrices, built on the device, and pixels outside the frame act as
+zero padding.
 """
 
 from __future__ import annotations
@@ -58,7 +59,9 @@ def crop_resize_weights(lo_px: torch.Tensor, hi_px: torch.Tensor, in_size: int,
     [0, in_size) are zero padding: they take no pixel but count in each
     output row's normalisation, which sums the window over [-in, 2 in) as the
     JAX function does (handmvnet_tpu/ops/resize.py:72-100). lo_px, hi_px: [N]
-    integers (any dtype), on the device the weights are built on."""
+    crop bounds in pixels, integers or fractions (any dtype; taken as
+    float32, as the JAX function takes them), on the device the weights are
+    built on."""
     lo = lo_px.to(torch.float32)[:, None, None]
     crop = (hi_px - lo_px).to(torch.float32)[:, None, None]
     scale = crop / out_size
@@ -81,14 +84,14 @@ def crop_resize_weights(lo_px: torch.Tensor, hi_px: torch.Tensor, in_size: int,
 
 
 def crop_resize(images: torch.Tensor, boxes: torch.Tensor, out_size: int) -> torch.Tensor:
-    """Crop (integer box, zero padding) and antialiased resize of N frames,
-    each with its own box: the counterpart of
+    """Crop (zero padding) and antialiased resize of N frames, each with
+    its own box: the counterpart of
     handmvnet_tpu/ops/resize.py::crop_resize_normalize(normalize=False)
     under vmap.
 
-    images: [N, H, W, 3] uint8 (or float in [0, 255]); boxes: [N, 4] integer
-    xyxy, which may leave the frame. Returns [N, out_size, out_size, 3]
-    float32 in [0, 1]."""
+    images: [N, H, W, 3] uint8 (or float in [0, 255]); boxes: [N, 4] xyxy,
+    integer or fractional (a box divided by decode_scale_denom), which may
+    leave the frame. Returns [N, out_size, out_size, 3] float32 in [0, 1]."""
     n, h, w, _ = images.shape
     img = images.to(torch.float32) / 255.0
     wy = crop_resize_weights(boxes[:, 1], boxes[:, 3], h, out_size)  # [N, S, H]

@@ -21,9 +21,15 @@ with the preparation of batch N+1 on the loader's preparer thread while
 step N runs; validation reads the val split without augmentation. An epoch
 has the train split's size // batch steps, which also size the LR
 milestones; ``--steps-per-epoch`` cuts the training loop only (smoke runs).
-Dropout of optimizer step s draws from seed * 1000003 + s. ``--resume``
-restores the model, optimizer, scheduler and step; the data stream and the
-augmentation counter start again, as in the JAX trainer. The model starts
+``data.decode_scale_denom`` d downscales the frames by d after the decode
+(the crop boxes divided by d, the model's boxes not); ``data.cache_decoded``
+serves every split from the decode cache (data/cache.py), which the first
+pass builds; each rank's slice of the shards is part of its store's
+identity, so that ranks never build into one directory
+(handmvnet_tpu/train.py:292-297). Dropout of optimizer step s draws from
+seed * 1000003 + s. ``--resume`` restores the model, optimizer, scheduler
+and step; the data stream and the augmentation counter start again, as in
+the JAX trainer. The model starts
 from PyTorch's default initialisation; with ``backbone_pretrained`` the
 backbone then takes the ImageNet weights at ``backbone_pretrained_path``
 (``pretrained.py``), before ``--resume``, so a restored checkpoint wins over
@@ -85,7 +91,7 @@ import torch.distributed as dist
 from handmvnet_tpu_torch.config import Config, refuse_absolute_root
 from handmvnet_tpu_torch.data.dexycb import DexYCBDataset
 from handmvnet_tpu_torch.data.ho3d import HO3DDataset
-from handmvnet_tpu_torch.data.jpeg import decode_jpeg
+from handmvnet_tpu_torch.data.jpeg import decode_jpeg, downscale_frames
 from handmvnet_tpu_torch.data.loader import BatchLoader
 from handmvnet_tpu_torch.data.mvhand import MVHandDataset
 from handmvnet_tpu_torch.data.pipeline import preprocess_views
@@ -123,13 +129,14 @@ HOST_ONLY = ("full_rgb", "full_jpeg", "mv_sample_id", "root_idx", "intrinsic_mat
 AUGMENT_SEED = 42  # the n-th prepared batch augments from seed AUGMENT_SEED + n
 
 
-def batch_frames(batch: dict, device: torch.device) -> torch.Tensor:
-    """A collated batch's full frames, uint8 [B, V, H, W, 3] on ``device``:
-    its JPEG bytes decoded there (one nvJPEG call on a card), or the frames
-    the CPU reader decoded."""
+def batch_frames(batch: dict, device: torch.device, denom: int = 1) -> torch.Tensor:
+    """A collated batch's frames, uint8 [B, V, H, W, 3] on ``device``: its
+    JPEG bytes decoded there (one nvJPEG call on a card) and downscaled by
+    ``denom`` (the config's decode_scale_denom), or the frames that the CPU
+    reader or the decode cache gives, already at that scale."""
     if "full_jpeg" in batch:
         flat = [jpeg for views in batch["full_jpeg"] for jpeg in views]
-        frames = decode_jpeg(flat, device)
+        frames = downscale_frames(decode_jpeg(flat, device), denom)
         return frames.reshape(len(batch["full_jpeg"]), -1, *frames.shape[1:])
     return torch.from_numpy(batch["full_rgb"]).to(device)
 
@@ -137,29 +144,34 @@ def batch_frames(batch: dict, device: torch.device) -> torch.Tensor:
 def make_device_prepare(cfg: Config, device: str | torch.device = "cuda",
                         augment: bool = False):
     """Collated batch -> batch on ``device``: the frames there (JPEG bytes
-    decoded by nvJPEG on a card; on the CPU the reader has decoded them),
-    then ``preprocess_views`` (crops, augmentation with ``augment``,
-    black-image rule, heatmaps) and the labels as tensors, without the
-    host-only fields. With ``augment`` the n-th batch prepared (from 1) draws
-    from a generator on ``device`` seeded AUGMENT_SEED + n
-    (handmvnet_tpu/train.py:50-57), so one thread must call it, in order."""
+    decoded by nvJPEG on a card; on the CPU the reader has decoded them;
+    cached frames uploaded), then ``preprocess_views`` (crops, augmentation
+    with ``augment``, black-image rule, heatmaps) and the labels as tensors,
+    without the host-only fields. With decode_scale_denom d > 1 the frames
+    are 1/d the size and the crop boxes, only they, are divided by d: the
+    model's ``bboxes`` stay in source pixels (handmvnet_tpu/train.py:59-66).
+    With ``augment`` the n-th batch prepared (from 1) draws from a generator
+    on ``device`` seeded AUGMENT_SEED + n (handmvnet_tpu/train.py:50-57), so
+    one thread must call it, in order."""
     device = torch.device(device)
     generator = torch.Generator(device) if augment else None
+    denom = cfg.data.decode_scale_denom
     prepared = 0
 
     def prepare(batch: dict) -> dict:
         nonlocal prepared
-        frames = batch_frames(batch, device)
+        frames = batch_frames(batch, device, denom)
         any_visible = torch.from_numpy(~np.all(batch["joints_img_mask"], axis=-1)).to(device)
         out = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
                for k, v in batch.items() if k not in HOST_ONLY}
         if augment:
             prepared += 1
             generator.manual_seed(AUGMENT_SEED + prepared)
+        crop_boxes = out["bboxes"] / float(denom) if denom > 1 else out["bboxes"]
         out["rgb"], out["heatmap"] = preprocess_views(
-            frames, out["bboxes"], out["joints_crop_img"], any_visible,
+            frames, crop_boxes, out["joints_crop_img"], any_visible,
             image_size=cfg.data.image_size, heatmap_size=cfg.data.heatmap_size,
-            augment=augment, generator=generator)
+            augment=augment, generator=generator, box_scale_denom=denom)
         return out
 
     return prepare

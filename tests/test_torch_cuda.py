@@ -3,7 +3,8 @@ autograd Functions against autograd through the plain versions, a training
 step through both kernels, the HRNet model's forward and training step
 through K1, the mesh stage against the CPU, and the data path (nvJPEG
 against libjpeg's pixels, make_device_prepare against the CPU, one eval
-batch through both kernels), on the card.
+batch through both kernels, the downscaled decode against the CPU, the
+decode cache's store against nvJPEG's decode), on the card.
 
 Marked ``cuda``: they skip on a machine without a CUDA device (a kernel
 written in CUDA has no CPU mode). On a host with an NVIDIA Hopper GPU:
@@ -515,3 +516,55 @@ def test_train_loader_preparer_stage_on_card(card, tmp_path):
         assert got["rgb"].device.type == "cuda"
         for key, value in want.items():
             assert torch.equal(got[key], value), key
+
+
+@pytest.mark.parametrize("denom", [2, 4, 5, 8])
+def test_downscale_on_card_matches_cpu(card, denom):
+    """data/jpeg.py's downscale_frames (the downscaled decode) on the card
+    bitwise equal to the CPU on the same frames (integer ops), and nvJPEG's
+    fixture downscaled within nvJPEG's limits of cv2's pixels downscaled."""
+    import numpy as np
+
+    from handmvnet_tpu_torch.data import jpeg
+
+    payload, ref = jpeg.jpeg_fixture()
+    frames = jpeg.decode_jpeg([payload] * 4, card)
+    noise = torch.randint(0, 256, (3, 480, 640, 3), dtype=torch.uint8,
+                          generator=torch.Generator().manual_seed(denom))
+    for x in (frames, noise.to(card)):
+        assert torch.equal(jpeg.downscale_frames(x, denom).cpu(),
+                           jpeg.downscale_frames(x.cpu(), denom))
+    want = jpeg.downscale_frames(torch.from_numpy(ref)[None], denom).numpy().astype(np.int16)
+    diff = np.abs(jpeg.downscale_frames(frames, denom)[:1].cpu().numpy().astype(np.int16) - want)
+    assert diff.max() <= jpeg.NVJPEG_MAX_ABS_DIFF and diff.mean() <= jpeg.NVJPEG_MEAN_ABS_DIFF
+
+
+def test_decode_cache_on_card_stores_nvjpegs_frames(card, tmp_path):
+    """cache_decoded on the card at decode_scale_denom 2: the store holds
+    nvJPEG's decode, downscaled, of each batch of the reader (bitwise), a
+    second epoch makes no nvJPEG call, and the store is not the CPU's."""
+    import dataclasses
+
+    import numpy as np
+
+    from handmvnet_tpu_torch.data import jpeg
+    from handmvnet_tpu_torch.data.ho3d import HO3DDataset
+
+    cfg = _shard_config(tmp_path / "data", views=2, image=64)
+    data = dataclasses.replace(cfg.data, decode_scale_denom=2)
+    cached = dataclasses.replace(data, cache_decoded=True, cache_dir=str(tmp_path / "cache"))
+    ds = HO3DDataset(cached, "val", device=card)
+    first = list(ds)
+    calls = jpeg.decode_jpeg.calls
+    second = list(ds)
+    assert jpeg.decode_jpeg.calls == calls
+    assert [s["mv_sample_id"] for s in first] == [s["mv_sample_id"] for s in second]
+    plain = list(HO3DDataset(data, "val", device=card))
+    for i in range(0, len(plain), data.batch_size):
+        chunk = plain[i:i + data.batch_size]
+        frames = jpeg.downscale_frames(
+            jpeg.decode_jpeg([p for s in chunk for p in s["full_jpeg"]], card), 2).cpu().numpy()
+        for s, f in zip(first[i:i + data.batch_size], frames.reshape(len(chunk), 2, 240, 320, 3)):
+            np.testing.assert_array_equal(s["full_rgb"], f)
+    assert ds._cache().identity["reader"] == "nvjpeg"
+    assert ds._cache().dir != HO3DDataset(cached, "val", device="cpu")._cache().dir

@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_parity import assert_same
 
 from handmvnet_tpu.config import Config as JaxConfig
 from handmvnet_tpu.config import DataConfig as JaxDataConfig
@@ -63,24 +64,6 @@ def _data_cfgs(shard_dir, **kw):
     return DataConfig(**kw), JaxDataConfig(**kw)
 
 
-def _assert_same(ours, ref, where=""):
-    """Exact equality of nested samples: arrays by value and dtype."""
-    if isinstance(ref, dict):
-        assert set(ours) == set(ref), where
-        for k in ref:
-            _assert_same(ours[k], ref[k], f"{where}.{k}")
-    elif isinstance(ref, (list, tuple)):
-        assert len(ours) == len(ref), where
-        for i, (a, b) in enumerate(zip(ours, ref)):
-            _assert_same(a, b, f"{where}[{i}]")
-    elif isinstance(ref, (np.ndarray, np.generic)):
-        assert isinstance(ours, (np.ndarray, np.generic)), where
-        assert ours.dtype == ref.dtype and ours.shape == ref.shape, where
-        np.testing.assert_array_equal(ours, ref, err_msg=where)
-    else:
-        assert ours == ref, where
-
-
 # ------------------------------------------------------------------ readers --
 
 @pytest.mark.parametrize("url", [
@@ -116,7 +99,7 @@ def test_iter_tar_samples_matches_jax(shard_dir, family):
         ours = list(webdataset.iter_tar_samples(shard, decode=decode))
         ref = list(jax_wds.iter_tar_samples(shard, decode=decode))
         assert len(ours) == len(ref) == 2
-        _assert_same(ours, ref)
+        assert_same(ours, ref)
     assert ours[0]["image_0.jpg"][:2] == b"\xff\xd8"  # raw JPEG bytes
 
 
@@ -173,7 +156,7 @@ def test_parse_multiview_labels_matches_jax(shard_dir, views, root_idx, family):
     labels = pickle.loads(raw["label.pyd"])
     ours = ho3d.parse_multiview_labels(labels, root_idx, (480, 640), views)
     ref = jax_ho3d.parse_multiview_labels(labels, root_idx, (480, 640), views)
-    _assert_same(ours, ref)
+    assert_same(ours, ref)
 
 
 @pytest.mark.parametrize("split", ["val", "test"])
@@ -184,13 +167,13 @@ def test_dataset_samples_match_jax(shard_dir, split):
     ref = list(jax_ho3d.HO3DDataset(jcfg, split, use_native=False))
     ours = list(ho3d.HO3DDataset(cfg, split, device="cpu"))
     assert len(ours) == len(ref) == SIZES[split]
-    _assert_same(ours, ref)
+    assert_same(ours, ref)
     assert ours[0]["full_rgb"].shape == (3, 480, 640, 3)
     card = list(ho3d.HO3DDataset(cfg, split, device="cuda"))  # no card needed to read
     for c, r in zip(card, ref):
         frames = jpeg.decode_jpeg(c.pop("full_jpeg"), "cpu").numpy()
         np.testing.assert_array_equal(frames, r["full_rgb"])
-        _assert_same(c, {k: v for k, v in r.items() if k != "full_rgb"})
+        assert_same(c, {k: v for k, v in r.items() if k != "full_rgb"})
 
 
 @pytest.mark.parametrize("add_val", [False, True], ids=["train", "train+val"])
@@ -211,7 +194,7 @@ def test_train_split_order_matches_jax(shard_dir, add_val):
         passes.append(ref)
     assert passes[0] != passes[1] and len(set(passes[0])) > 1  # a new draw every pass
     ref = list(jax_ho3d.HO3DDataset(jcfg, "train", use_native=False))
-    _assert_same(list(ho3d.HO3DDataset(cfg, "train", device="cpu")), ref)
+    assert_same(list(ho3d.HO3DDataset(cfg, "train", device="cpu")), ref)
 
 
 # ------------------------------------------------------------------- loader --
@@ -231,7 +214,7 @@ def test_batches_match_jax_loader(shard_dir):
     for _ in range(2):
         got, want = list(ours), list(ref)
         assert len(got) == len(want) == len(ours) == 2
-        _assert_same(got, want)
+        assert_same(got, want)
     assert got[0]["full_rgb"].shape == (4, 5, 480, 640, 3)
     samples = [s for _, s in zip(range(3), ho3d.HO3DDataset(_data_cfgs(shard_dir)[0], "test",
                                                             device="cuda"))]
@@ -294,7 +277,7 @@ def test_preparer_stage_keeps_order(shard_dir, device_prefetch):
     for epoch in range(2):
         got, want = list(ours), list(ref)
         assert [b["n"] for b in got] == [b["n"] for b in want] == [3 * epoch + i for i in (1, 2, 3)]
-        _assert_same([{k: v for k, v in b.items() if k != "thread"} for b in got],
+        assert_same([{k: v for k, v in b.items() if k != "thread"} for b in got],
                      [{k: v for k, v in b.items() if k != "thread"} for b in want])
         on_consumer = {b["thread"] == threading.get_ident() for b in got}
         assert on_consumer == {not device_prefetch}
@@ -379,6 +362,45 @@ def test_cpu_codec_is_cv2_and_refuses_mixed_sizes():
         jpeg.encode_jpeg(torch.zeros(1, 8, 8, 3))
 
 
+@pytest.mark.parametrize("denom", [2, 4, 5, 8])
+def test_downscale_frames_is_cv2_inter_area(denom):
+    """The downscaled decode's box mean, bitwise cv2.resize(INTER_AREA) (the
+    JAX python reader's resize) on random frames, whose block sums hit every
+    rounding tie, and on the fixture: half up at 2, half to even above."""
+    import cv2
+
+    frames = np.random.default_rng(denom).integers(0, 256, size=(3, 480, 640, 3), dtype=np.uint8)
+    frames = np.concatenate([frames, jpeg.jpeg_fixture()[1][None]])
+    got = jpeg.downscale_frames(torch.from_numpy(frames), denom)
+    want = np.stack([cv2.resize(f, (640 // denom, 480 // denom), interpolation=cv2.INTER_AREA)
+                     for f in frames])
+    assert got.dtype == torch.uint8 and got.shape == want.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("denom", [0, 3, 7, 64, 2.0])
+def test_downscale_frames_refuses_a_factor_that_does_not_divide_the_frame(denom):
+    frames = torch.zeros(1, 480, 640, 3, dtype=torch.uint8)
+    with pytest.raises(ValueError, match="divides both sides"):
+        jpeg.downscale_frames(frames, denom)
+    assert jpeg.downscale_frames(frames, 1) is frames
+
+
+@pytest.mark.parametrize("split", ["val", "test"])
+def test_reader_at_denom_2_matches_jax_python_reader(shard_dir, split):
+    """decode_scale_denom 2: the CPU reader's samples (full_rgb 240 x 320)
+    bitwise JAX's python reader's (cv2 INTER_AREA); the card form keeps the
+    full-size JPEGs, which decode and downscale to the same frames."""
+    cfg, jcfg = _data_cfgs(shard_dir, decode_scale_denom=2)
+    ref = list(jax_ho3d.HO3DDataset(jcfg, split, use_native=False))
+    ours = list(ho3d.HO3DDataset(cfg, split, device="cpu"))
+    assert_same(ours, ref)
+    assert ours[0]["full_rgb"].shape == (5, 240, 320, 3)
+    for c, r in zip(ho3d.HO3DDataset(cfg, split, device="cuda"), ref):
+        frames = jpeg.downscale_frames(jpeg.decode_jpeg(c["full_jpeg"], "cpu"), 2)
+        np.testing.assert_array_equal(frames.numpy(), r["full_rgb"])
+
+
 def test_written_shards_match_jax(tmp_path):
     """The port's shard writer on the CPU: byte for byte the JAX package's
     shards; with coherent geometry the same labels (the drawn hands differ:
@@ -392,7 +414,7 @@ def test_written_shards_match_jax(tmp_path):
     ref = jax_write_shards(tmp_path / "ref_c", consistent_geometry=True, **kw)
     for a, b in zip(ours, ref):
         for s, r in zip(webdataset.iter_tar_samples(a), webdataset.iter_tar_samples(b)):
-            _assert_same(s["label.pyd"], r["label.pyd"])
+            assert_same(s["label.pyd"], r["label.pyd"])
             bright = s["image_1.jpg"] > 150  # the drawn skeleton
             assert 0.001 < bright.mean() < 0.05
             assert (r["image_1.jpg"][bright] > 100).mean() > 0.5
@@ -510,17 +532,58 @@ def test_make_device_prepare_matches_jax(shard_dir, collated):
         np.testing.assert_allclose(got, want, atol=atol, rtol=0, err_msg=key)
 
 
+@pytest.mark.parametrize("augment", [False, True], ids=["no-augment", "augment"])
+def test_make_device_prepare_at_denom_2_matches_jax(shard_dir, augment, monkeypatch):
+    """decode_scale_denom 2 on 240 x 320 frames with crop boxes at odd
+    coordinates (so that the halved boxes are fractional): JAX's
+    make_device_prepare against the port's, the model's bboxes at source
+    resolution, rgb 1e-5 (with augmentation at the draws JAX's key gives,
+    the chain's posterize-flip rule of tests/test_torch_augment.py),
+    heatmap 1e-6, labels exact."""
+    from test_torch_augment import assert_equal_up_to_posterize_flips, jax_draws
+
+    from handmvnet_tpu_torch.data import augment as port_augment
+
+    data = {"dataset_dir": str(shard_dir), "decode_scale_denom": 2, "split_size_overrides": SIZES}
+    cfg, jcfg = Config.from_dict({"data": data}), JaxConfig.from_dict({"data": data})
+    batch = next(iter(jax_loader.BatchLoader(
+        jax_ho3d.HO3DDataset(jcfg.data, "val", use_native=False), 2, 1)))
+    batch["bboxes"] = np.floor(batch["bboxes"] / 2) * 2 + 1  # every coordinate odd
+    assert batch["full_rgb"].shape == (2, 5, 240, 320, 3)
+    ref = jax_make_device_prepare(jcfg, augment)(dict(batch))
+    if augment:
+        sides = np.maximum((batch["bboxes"][..., 2] / np.float32(2)
+                            - batch["bboxes"][..., 0] / np.float32(2)) * np.float32(2), 1.0)
+        draws = jax_draws(jax.random.PRNGKey(42 + 1), (256 / sides.reshape(-1)).astype(np.float32),
+                          256, 256)
+        monkeypatch.setattr(port_augment, "draw_augmentation", lambda n, gen, dev: draws)
+    ours = train.make_device_prepare(cfg, "cpu", augment=augment)(dict(batch))
+    assert set(ours) == set(ref)
+    np.testing.assert_array_equal(ours["bboxes"].numpy(), batch["bboxes"])
+    mean = np.asarray([0.485, 0.456, 0.406], np.float32)
+    std = np.asarray([0.229, 0.224, 0.225], np.float32)
+    for key, value in ref.items():
+        got, want = ours[key].numpy(), np.asarray(value)
+        assert got.dtype == want.dtype and got.shape == want.shape, key
+        if key == "rgb" and augment:
+            assert_equal_up_to_posterize_flips(got * std + mean, want * std + mean)
+            continue
+        atol = {"rgb": 1e-5, "heatmap": 1e-6}.get(key, 0.0)
+        np.testing.assert_allclose(got, want, atol=atol, rtol=0, err_msg=key)
+
+
 # ---------------------------------------------------------------- refusals --
 
-def test_unported_options_raise_naming_their_roadmap_item(shard_dir):
-    """The decode cache and the downscaled decode raise, on every split; the
-    train split and augmentation are ported."""
+def test_train_split_resamples_and_bad_denom_raises(shard_dir):
+    """A decode_scale_denom that does not divide the 480 x 640 frames raises
+    a ValueError naming the rule, on every split; the train split is the
+    resampled stream."""
     cfg, _ = _data_cfgs(shard_dir)
     for split in ("train", "val", "test"):
-        with pytest.raises(NotImplementedError, match="The decode cache"):
-            ho3d.HO3DDataset(dataclasses.replace(cfg, cache_decoded=True), split, device="cpu")
-        with pytest.raises(NotImplementedError, match="The downscaled decode"):
-            ho3d.HO3DDataset(dataclasses.replace(cfg, decode_scale_denom=2), split, device="cpu")
+        for denom in (3, 7):
+            with pytest.raises(ValueError, match="divides both sides of the 480 x 640"):
+                ho3d.HO3DDataset(dataclasses.replace(cfg, decode_scale_denom=denom), split,
+                                 device="cpu")
     assert ho3d.HO3DDataset(cfg, "train", device="cpu").dataset.resample
     train_loader, _ = train.build_dataloaders(Config(data=cfg), "cpu", splits=("train", "val"))
     assert len(train_loader) == cfg.split_size("train") // cfg.batch_size

@@ -130,3 +130,35 @@ def test_ensure_dataset_writes_consistent_shards(tmp_path, monkeypatch):
     assert len(list(where.glob("HO3D_mv_test-*.tar"))) == 3
     res = sanity.gt_triangulation_check(cfg, num_batches=1, batch_size=2, device="cpu")
     assert res["mpjpe_mm"] < 0.1
+
+
+def test_sanity_at_denom_2_matches_jax(consistent, monkeypatch):
+    """decode_scale_denom 2 (frames of 240 x 320, crop boxes halved): the
+    triangulation check within 1e-3 mm of JAX's, the extrinsics scan equal,
+    and the GT-overlay panels against JAX's python reader's (cv2 INTER_AREA;
+    its native loader, which this test switches off, scales in libjpeg's
+    DCT): the full-frame canvases bitwise, the crop canvas within one
+    level (its crops are fp32 within 1e-5 of JAX's, rounded to uint8)."""
+    import dataclasses
+
+    from handmvnet_tpu.data import native_loader
+
+    monkeypatch.setattr(native_loader, "native_available", lambda: False)
+    cfg, path = consistent
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, decode_scale_denom=2))
+    jcfg = JaxConfig.from_yaml(str(path))
+    jcfg = dataclasses.replace(jcfg, data=dataclasses.replace(jcfg.data, decode_scale_denom=2))
+    ours = sanity.gt_triangulation_check(cfg, num_batches=2, batch_size=2, device="cpu")
+    ref = jax_sanity.gt_triangulation_check(jcfg, num_batches=2, batch_size=2)
+    assert ours["num_samples"] == ref["num_samples"] == 4
+    np.testing.assert_allclose(ours["per_batch_mm"], ref["per_batch_mm"], atol=1e-3, rtol=0)
+    assert sanity.extrinsics_consistency_check(cfg, num_samples=4, device="cpu") == \
+        jax_sanity.extrinsics_consistency_check(jcfg, num_samples=4)
+    ours = sanity.gt_overlay_panels(cfg, device="cpu")
+    ref = jax_sanity.gt_overlay_panels(jcfg)
+    assert set(ref) == set(ours)
+    for name, canvas in ref.items():
+        assert ours[name].shape == canvas.shape and ours[name].dtype == canvas.dtype, name
+        diff = np.abs(ours[name].astype(int) - canvas.astype(int))
+        assert diff.max() <= (1 if name == "joints2d_crop" else 0), (name, diff.max())
+    assert ref["joints2d_full"].shape[0] == 240

@@ -1,6 +1,7 @@
 """Shared helpers of the port's parity tests (tests/test_torch_*.py): random
 flax variables from a numpy seed, carried into the port by
-handmvnet_tpu_torch.checkpoint.load_flax_variables."""
+handmvnet_tpu_torch.checkpoint.load_flax_variables; exact equality of
+nested samples; the release shard layout at test size."""
 
 from __future__ import annotations
 
@@ -68,3 +69,21 @@ def write_train_shards(out_dir) -> dict:
                                 consistent_geometry=True, device="cpu")
     return {"dataset_dir": str(out_dir),
             "split_size_overrides": {"train": 14, "train+val": 18, "val": 4}}
+
+
+def assert_same(ours, ref, where=""):
+    """Exact equality of nested samples: arrays by value, dtype and shape."""
+    if isinstance(ref, dict):
+        assert set(ours) == set(ref), where
+        for k in ref:
+            assert_same(ours[k], ref[k], f"{where}.{k}")
+    elif isinstance(ref, (list, tuple)):
+        assert len(ours) == len(ref), where
+        for i, (a, b) in enumerate(zip(ours, ref)):
+            assert_same(a, b, f"{where}[{i}]")
+    elif isinstance(ref, (np.ndarray, np.generic)):
+        assert isinstance(ours, (np.ndarray, np.generic)), where
+        assert ours.dtype == ref.dtype and ours.shape == ref.shape, where
+        np.testing.assert_array_equal(ours, ref, err_msg=where)
+    else:
+        assert ours == ref, where
