@@ -4,13 +4,23 @@ Hopper GPU. Run from the repository root: ``python3 chip_smoke.py``.
 
 Phases; any failure exits nonzero and prints no result:
   1. the card's name and power limit (nvidia-smi);
-  2. build both CUDA kernels from handmvnet_tpu_torch/csrc (nvcc, in parallel),
-     and count the tensor-core instructions (HMMA) in each library's SASS
-     (cuobjdump): the bf16 and the fp32 (3xTF32) kernel of each must have some;
+  2. build the CUDA kernels from handmvnet_tpu_torch/csrc (nvcc, in parallel):
+     K1's two designs, "key_split" (attention.cu) and "query_tiles"
+     (attention_tiles.cu), and K2 (stem.cu); count the tensor-core
+     instructions in each library's SASS (cuobjdump): every bf16 and fp32
+     (3xTF32) kernel must have mma.sync (HMMA), and the "query_tiles" bf16
+     kernel wgmma (HGMMA);
   3. hold each kernel against its plain PyTorch version at the shapes of the
-     b1 x v8 main path, fp32 and bf16, with the tolerance stated;
-  4. time each kernel, its plain version and one library call of the same
-     function (used nowhere in the port), beside the card's bound;
+     b1 x v8 main path, fp32 and bf16, with the tolerance stated (K1: each
+     design that takes the shape, called directly);
+  4. time each kernel (K1: both designs), its plain version and one library
+     call of the same function (used nowhere in the port), beside the card's
+     bound; K1's rows are the design that ops/attention.attention_design
+     picks. Every run below counts K1's launches by design from 0 with its
+     other counts, and they must add up to K1's; where the run's batches are
+     known (the serving protocol, training steps and validation, eval.py,
+     infer.py, data-parallel ranks) they must be the rule's split, or the
+     script fails;
   5. drive the main path, the eval_fps protocol (HO3D release model, batch 1
      x 8 views x 256^2, each step the forward and then the mesh stage: SVD
      alignment, adaptive IK and MANO LBS over the synthetic MANO model) in fp32
@@ -205,7 +215,9 @@ Phases; any failure exits nonzero and prints no result:
      phase 9's and phase 6's: fp32 once, bf16 in turns with runs without
      the cache (without, with, with, without); the train loader's samples/s
      cold and warm and the store's bytes on disk;
- 16. a {"kernels": [...]} line (the /denom and /cache rows phase 15's; the
+ 16. a {"kernels": [...]} line, K1 an entry for each design a row's calls
+     take (its calls' times, both designs' device ms, its launches as the
+     run counted them by design); the /denom and /cache rows phase 15's; the
      /int8 and /remat rows phase 14's;
      the HR rows carry K1's launches on the HR
      paths, the /eval rows the launches of phase 8's eval runs, the
@@ -249,7 +261,13 @@ HR_WARMUP, HR_ITERS = 20, 200
 # the 495 TFLOP/s TF32 rate (above the 67 TFLOP/s of f32 FMAs on CUDA cores).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
-MMA_KERNELS = ("bf16_mma", "tf32x3_mma")  # each library's tensor-core kernels, by symbol
+# each library's tensor-core kernels, by symbol, and the instruction each must hold:
+# mma.sync (HMMA) or, for K1's "query_tiles" bf16 kernel, wgmma (HGMMA)
+MMA_KERNELS = {"attention": {"bf16_mma": "HMMA", "tf32x3_mma": "HMMA"},
+               "attention_tiles": {"bf16_wgmma": "HGMMA", "tf32x3_mma": "HMMA"},
+               "stem": {"bf16_mma": "HMMA", "tf32x3_mma": "HMMA"}}
+K1_SOURCES = {"key_split": "handmvnet_tpu_torch/csrc/attention.cu",
+              "query_tiles": "handmvnet_tpu_torch/csrc/attention_tiles.cu"}
 
 ATTN_SHAPES = ((168, 168), (21, 147), (21, 21))  # (Nq, Nk) of the 5 fusion blocks
 ATTN_CALLS = {(168, 168): 2, (21, 147): 1, (21, 21): 2}  # launches per forward
@@ -363,8 +381,8 @@ def bound_ms(flops: float, nbytes: float, dtype) -> tuple[float, str]:
 
 
 def tensor_core_counts(lib: Path) -> dict:
-    """{kernel symbol: count of HMMA (mma.sync) and HGMMA (wgmma) instructions}
-    in a library's SASS."""
+    """{kernel symbol: {"HMMA": n, "HGMMA": n}}: the mma.sync and wgmma
+    instructions in a library's SASS."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True, timeout=120)
     if sass.returncode != 0:
@@ -374,10 +392,47 @@ def tensor_core_counts(lib: Path) -> dict:
         head = re.match(r"\s*Function : (\S+)", line)
         if head:
             name = head.group(1)
-            counts[name] = 0
-        elif name is not None and re.search(r"\bH(G)?MMA\b", line):
-            counts[name] += 1
+            counts[name] = {"HMMA": 0, "HGMMA": 0}
+        elif name is not None:
+            op = re.search(r"\b(HG?MMA)\b", line)
+            if op:
+                counts[name][op.group(1)] += 1
     return counts
+
+
+def reset_launches(attention_ops, stem_ops) -> None:
+    """Set every launch count to 0: K1's, K1's by design and K2's."""
+    attention_ops.fused_attention.launches = 0
+    attention_ops.fused_attention.design_launches = dict.fromkeys(attention_ops.DESIGNS, 0)
+    stem_ops.stem_conv_nchw.launches = 0
+
+
+def rule_split(attention_ops, dtype, calls: dict, forwards: dict) -> dict:
+    """K1's launches by design that ``attention_design`` gives ``forwards``
+    ({batch: forwards}) of a model whose forward makes ``calls`` ({(Nq, Nk):
+    calls}), each over 8 heads."""
+    want = dict.fromkeys(attention_ops.DESIGNS, 0)
+    for batch, n in forwards.items():
+        for (nq, nk), c in calls.items():
+            want[attention_ops.attention_design(dtype, batch, 8, nq, nk)] += c * n
+    return want
+
+
+def k1_designs(attention_ops, label: str, want: dict | None = None) -> dict:
+    """K1's launches by design since ``reset_launches``: they must add up to
+    its launches and, given ``want`` (``rule_split``'s), be the rule's."""
+    got = dict(attention_ops.fused_attention.design_launches)
+    print(f"   {label}: K1 launches by design {got}", flush=True)
+    if sum(got.values()) != attention_ops.fused_attention.launches or \
+            (want is not None and got != want):
+        fail(f"{label}: K1 launches by design {got} (of "
+             f"{attention_ops.fused_attention.launches}), expected {want} from attention_design")
+    return got
+
+
+def add_designs(*counts: dict) -> dict:
+    """The sum of K1's launch counts by design."""
+    return {d: sum(c.get(d, 0) for c in counts) for d in K1_SOURCES}
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -428,26 +483,36 @@ def world_of_one():
 
 
 def check_attention(attention_ops, dtype, gen, shapes=ATTN_SHAPES, batch=1) -> dict:
-    """K1 at each shape: error vs plain, times, bound."""
+    """K1 at each shape: each design that takes it (launch_design) against the
+    plain version, the time of each beside the plain version's and SDPA's,
+    the bound, and the design that ``attention_design`` picks there."""
     scale = 128 ** -0.5
     rows = {}
     for nq, nk in shapes:
         # the model's layout: [b, n, h, d] projections viewed as [b, h, n, d]
         q, k, v = (torch.randn(batch, n, 8, 128, generator=gen, device="cuda").to(dtype)
                    .transpose(1, 2) for n in (nq, nk, nk))
-        with torch.no_grad():
-            out = attention_ops.fused_attention(q, k, v, scale)
-        torch.cuda.synchronize()
+        design = attention_ops.attention_design(dtype, batch, 8, nq, nk)
+        designs = [d for d in attention_ops.DESIGNS
+                   if d == "key_split" or nk <= attention_ops.TILE_MAX_KEYS[dtype]]
         ref = attention_ops.attention_plain(q, k, v, scale)
-        err = max_err(out, ref)
         tol = 2e-5 if dtype == torch.float32 else 2.0 ** -6 * float(ref.float().abs().max())
-        print(f"K1 fused_attention {dtype} batch {batch} (Nq, Nk)=({nq}, {nk}): "
-              f"max_abs_err={err:.3e} tol={tol:.3e}", flush=True)
-        if not err <= tol:
-            fail(f"K1 disagrees with its plain version at ({nq}, {nk}) {dtype}: {err} > {tol}")
+        errs = {}
+        for d in designs:
+            with torch.no_grad():
+                out = attention_ops.launch_design(q, k, v, scale, d)
+            torch.cuda.synchronize()
+            errs[d] = max_err(out, ref)
+            print(f"K1 fused_attention {dtype} batch {batch} (Nq, Nk)=({nq}, {nk}) {d}"
+                  f"{' (the rule)' if d == design else ''}: max_abs_err={errs[d]:.3e} "
+                  f"tol={tol:.3e}", flush=True)
+            if not errs[d] <= tol:
+                fail(f"K1 {d} disagrees with its plain version at ({nq}, {nk}) {dtype}: "
+                     f"{errs[d]} > {tol}")
         with torch.no_grad():
             t = time_ms({
-                "kernel": lambda: attention_ops.fused_attention(q, k, v, scale),
+                **{d: lambda d=d: attention_ops.launch_design(q, k, v, scale, d)
+                   for d in designs},
                 "plain": lambda: attention_ops.attention_plain(q, k, v, scale),
                 "library": lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
             })
@@ -455,11 +520,16 @@ def check_attention(attention_ops, dtype, gen, shapes=ATTN_SHAPES, batch=1) -> d
         flops = 4.0 * batch * 8 * nq * nk * 128  # q k^T and p v, 8 heads
         nbytes = batch * 8 * 128 * (2 * nq + 2 * nk) * elt  # q, k, v read and o written once
         b, by = bound_ms(flops, nbytes, dtype)
-        print(f"   device ms: kernel={t['kernel']['device']:.5f} plain={t['plain']['device']:.5f} "
-              f"sdpa={t['library']['device']:.5f} bound={b:.5f} ({by}); eager ms: "
-              f"kernel={t['kernel']['eager']:.5f} plain={t['plain']['eager']:.5f} "
-              f"sdpa={t['library']['eager']:.5f}", flush=True)
-        rows[(nq, nk)] = {"err": err, "t": t, "bound": b, "flops": flops, "bytes": nbytes}
+        print(f"   device ms: " + " ".join(f"{d}={t[d]['device']:.5f}" for d in designs) +
+              f" plain={t['plain']['device']:.5f} sdpa={t['library']['device']:.5f} "
+              f"bound={b:.5f} ({by}); eager ms: " +
+              " ".join(f"{d}={t[d]['eager']:.5f}" for d in designs) +
+              f" plain={t['plain']['eager']:.5f} sdpa={t['library']['eager']:.5f}", flush=True)
+        rows[(nq, nk)] = {"err": errs[design], "errs": errs, "design": design,
+                          "t": {"kernel": t[design], "plain": t["plain"],
+                                "library": t["library"]},
+                          "design_ms": {d: t[d]["device"] for d in designs},
+                          "bound": b, "flops": flops, "bytes": nbytes}
     return rows
 
 
@@ -606,8 +676,7 @@ def train_run(attention_ops, stem_ops, dtype_name: str, config: Path = CONFIG,
     gen = torch.Generator("cuda")
     steps = TRAIN_WARMUP + TRAIN_ITERS
     losses = []
-    attention_ops.fused_attention.launches = 0
-    stem_ops.stem_conv_nchw.launches = 0
+    reset_launches(attention_ops, stem_ops)
     for i in range(TRAIN_WARMUP):
         losses.append(train_step(state, cfg, batch, gen.manual_seed(i), accum)["loss"])
     torch.cuda.synchronize()
@@ -619,6 +688,8 @@ def train_run(attention_ops, stem_ops, dtype_name: str, config: Path = CONFIG,
     end.record()
     end.synchronize()
     launches = (attention_ops.fused_attention.launches, stem_ops.stem_conv_nchw.launches)
+    designs = k1_designs(attention_ops, label, rule_split(
+        attention_ops, DTYPES[dtype_name], TRAIN_ATTN_CALLS, {TRAIN_BATCH // accum: accum * steps}))
     ms = start.elapsed_time(end) / TRAIN_ITERS
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     curve = torch.stack(losses).cpu().tolist()
@@ -651,7 +722,8 @@ def train_run(attention_ops, stem_ops, dtype_name: str, config: Path = CONFIG,
           "device ms (profiler); the largest:", flush=True)
     for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
         print(f"      {t:9.3f} ms  {name[:110]}", flush=True)
-    return {"launches": launches, "ms": ms, "peak_gb": peak_gb, "device_ops": n_ops}
+    return {"launches": launches, "k1_designs": designs, "ms": ms, "peak_gb": peak_gb,
+            "device_ops": n_ops}
 
 
 def train_kernel_vs_plain(attention_ops, stem_ops, config: Path = CONFIG,
@@ -741,20 +813,23 @@ def serve(attention_ops, stem_ops, cfg, label: str, dtype_name: str, with_vertic
           attn_per_forward: int = 5):
     """The eval_fps protocol (b1 x v8 x 256^2, warmup + 2 x iters forwards)
     with the launch counters set to 0 just before and read just after: K1
-    must launch ``attn_per_forward`` times a forward and K2
+    must launch ``attn_per_forward`` times a forward (the fusion's 5 calls,
+    or 0), each by the design ``attention_design`` picks, and K2
     ``stem_per_forward`` times; the outputs must be fp32, finite, on the card
     and of the expected shapes. Returns (launches, outputs of the last step,
-    the protocol's stats)."""
+    the protocol's stats with "k1_designs", K1's launches by design)."""
     from handmvnet_tpu_torch.eval_fps import run_protocol
 
-    attention_ops.fused_attention.launches = 0
-    stem_ops.stem_conv_nchw.launches = 0
+    reset_launches(attention_ops, stem_ops)
     stats, out = run_protocol(cfg, views=8, dtype=DTYPES[dtype_name], warmup=warmup, iters=iters,
                               device="cuda", seed=0, with_vertices=with_vertices)
     torch.cuda.synchronize()
     got = (attention_ops.fused_attention.launches, stem_ops.stem_conv_nchw.launches)
-    want = (attn_per_forward * stats["forwards"], stem_per_forward * stats["forwards"])
     step = "forward + mesh stage" if with_vertices else "forward only (--no-vertices)"
+    stats["k1_designs"] = k1_designs(attention_ops, f"{label} {dtype_name} {step}", rule_split(
+        attention_ops, DTYPES[dtype_name], ATTN_CALLS if attn_per_forward else {},
+        {1: stats["forwards"]}))
+    want = (attn_per_forward * stats["forwards"], stem_per_forward * stats["forwards"])
     print(f"{label} {dtype_name} {step}: fps={stats['fps']:.2f} p50_ms={stats['p50_ms']:.4f} "
           f"mean_ms={stats['mean_ms']:.4f} forwards={stats['forwards']} "
           f"launches K1={got[0]} K2={got[1]}", flush=True)
@@ -907,24 +982,26 @@ def data_path_check(cfg, card_line: str) -> None:
 
 
 def eval_run(attention_ops, stem_ops, config: Path, ckpt: Path, label: str,
-             stem_per_forward: int, argv: tuple = ()) -> tuple[tuple[int, int], dict]:
+             stem_per_forward: int, argv: tuple = ()) -> tuple[tuple[int, int], dict, dict]:
     """eval.py on the card in fp32 (val, then test), the counters set to 0
     just before and read just after: K1 5 launches a forward, K2
     ``stem_per_forward``; val.json and test.json beside the checkpoint with
-    every metric finite, vertex metrics included. Returns the launches and
-    the results."""
+    every metric finite, vertex metrics included; K1's launches by design
+    the rule's at batch 16 (eval.py's batches are full). Returns the
+    launches, the results and K1's launches by design."""
     from handmvnet_tpu_torch import eval as port_eval
     from handmvnet_tpu_torch.config import Config
 
     cfg = Config.from_yaml(config)
     forwards = sum(max(1, cfg.data.split_size(s) // EVAL_BATCH) for s in ("val", "test"))
-    attention_ops.fused_attention.launches = 0
-    stem_ops.stem_conv_nchw.launches = 0
+    reset_launches(attention_ops, stem_ops)
     t0 = time.perf_counter()
     results = port_eval.main(["--config", str(config), "--checkpoint", str(ckpt), *argv])
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     got = (attention_ops.fused_attention.launches, stem_ops.stem_conv_nchw.launches)
+    designs = k1_designs(attention_ops, f"{label} eval.py", rule_split(
+        attention_ops, torch.float32, TRAIN_ATTN_CALLS, {EVAL_BATCH: forwards}))
     print(f"{label} eval.py fp32: {forwards} forwards of {EVAL_BATCH} x {EVAL_VIEWS} views in "
           f"{secs:.2f} s (load and first calls included), launches K1={got[0]} K2={got[1]}",
           flush=True)
@@ -940,7 +1017,7 @@ def eval_run(attention_ops, stem_ops, config: Path, ckpt: Path, label: str,
             fail(f"{label} eval: {mode}.json lacks the vertex metrics or differs from the run")
         if not np.isfinite(values).all():
             fail(f"{label} eval: {mode}.json has a metric that is not finite: {written}")
-    return got, results
+    return got, results, designs
 
 
 def eval_kernel_vs_plain(attention_ops, stem_ops, config: Path, ckpt: Path, label: str) -> None:
@@ -1071,9 +1148,10 @@ def data_and_eval_phase(attention_ops, stem_ops, gen, card_line: str, tmp: Path)
             data_path_check(cfg, card_line)
         ckpt = run_dir / "reference.pth"
         write_reference_checkpoint(cfg, ckpt)
-        launches, results = eval_run(attention_ops, stem_ops, config, ckpt, label,
-                                     stem_per_forward)
-        rows[label] = {"launches": launches, "results": results, "config": config, "ckpt": ckpt}
+        launches, results, designs = eval_run(attention_ops, stem_ops, config, ckpt, label,
+                                              stem_per_forward)
+        rows[label] = {"launches": launches, "k1_designs": designs, "results": results,
+                       "config": config, "ckpt": ckpt}
         eval_kernel_vs_plain(attention_ops, stem_ops, config, ckpt, label)
         rows[label].update(eval_throughput(config, label, card_line))
 
@@ -1178,10 +1256,12 @@ def shard_train_run(attention_ops, stem_ops, config: Path, out_dir: Path, label:
     """train.main on the smoke shards with the counters set to 0 just before
     and read just after: every optimizer step must launch K1 10 times and K2
     ``stem_per_step`` times, and the run in all 10 and 2 (or 0) a step plus 5
-    and 1 (or 0) a validation forward; every logged value finite. ms a step
-    is the mean gap between CUDA events recorded after consecutive steps of
-    an epoch (the first step of each epoch, after validation, left out): the
-    device's time per step, waits for data included. ``device_prefetch``
+    and 1 (or 0) a validation forward, K1 by the design the rule picks for
+    the microbatches and for the validation batches; every logged value
+    finite. ms a step is the mean gap between CUDA events recorded after
+    consecutive steps of an epoch (the first step of each epoch, after
+    validation, left out): the device's time per step, waits for data
+    included. ``device_prefetch``
     False prepares each batch on the consumer's thread (this run is the one
     caller of that setting). ``extra_forwards``: eval forwards beyond the
     validations' (the vis hook's), each K1 5 and K2 ``stem_per_step // 2``.
@@ -1224,8 +1304,7 @@ def shard_train_run(attention_ops, stem_ops, config: Path, out_dir: Path, label:
     train_step_mod.optimizer_step = recorded_optimizer_step
     if not device_prefetch:
         train_mod.BatchLoader = functools.partial(BatchLoader, device_prefetch=False)
-    attention_ops.fused_attention.launches = 0
-    stem_ops.stem_conv_nchw.launches = 0
+    reset_launches(attention_ops, stem_ops)
     decode_jpeg.calls = 0
     t0 = time.perf_counter()
     try:
@@ -1260,11 +1339,15 @@ def shard_train_run(attention_ops, stem_ops, config: Path, out_dir: Path, label:
     if any(d != want_step for d in per_step) or got != want:
         fail(f"{label}: kernel launches {got} (per step {sorted(set(per_step))}), expected "
              f"{want}: {want_step} a step and (5, {stem_per_step // 2}) a validation forward")
+    accum, dtype = train_mod.accumulation(cfg), DTYPES[cfg.train.compute_dtype]
+    designs = k1_designs(attention_ops, label, add_designs(
+        rule_split(attention_ops, dtype, TRAIN_ATTN_CALLS, {bs // accum: accum * steps}),
+        rule_split(attention_ops, dtype, TRAIN_ATTN_CALLS, {bs: val_forwards})))
     values = [v for r in records for v in r.values() if isinstance(v, float)]
     if not records or not all(math.isfinite(v) for v in values):
         fail(f"{label}: a logged value is not finite: {records}")
-    return {"ms": ms, "sps": bs / ms * 1e3, "launches": got, "steps": steps, "secs": secs,
-            "records": records, "decodes": decodes,
+    return {"ms": ms, "sps": bs / ms * 1e3, "launches": got, "k1_designs": designs,
+            "steps": steps, "secs": secs, "records": records, "decodes": decodes,
             "losses": [{key: float(value) for key, value in step.items()} for step in losses],
             "norms": [float(norm) for norm in norms]}
 
@@ -1401,8 +1484,7 @@ def dp_rank(out: str) -> None:
         batch = {k: v[rank * TRAIN_BATCH:(rank + 1) * TRAIN_BATCH]
                  for k, v in dp_batch(cfg).items()}
         accum = accumulation(cfg, world)
-        attention_ops.fused_attention.launches = 0
-        stem_ops.stem_conv_nchw.launches = 0
+        reset_launches(attention_ops, stem_ops)
         launches, losses, norms = [], [], []
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         with timed_all_reduce() as reduce_ms:
@@ -1417,7 +1499,10 @@ def dp_rank(out: str) -> None:
                                  stem_ops.stem_conv_nchw.launches - before[1]))
             end.record()
             end.synchronize()
-        torch.save({"launches": launches,
+        designs = k1_designs(attention_ops, f"data-parallel rank {rank}", rule_split(
+            attention_ops, torch.float32, TRAIN_ATTN_CALLS,
+            {TRAIN_BATCH // accum: accum * (DP_WARMUP + DP_STEPS)}))
+        torch.save({"launches": launches, "k1_designs": designs,
                     "losses": [{k: float(v) for k, v in lo.items()} for lo in losses],
                     "norms": [float(n) for n in norms],
                     "ms": start.elapsed_time(end) / DP_STEPS,
@@ -1519,6 +1604,7 @@ def dp_shared_card(card_line: str) -> dict:
     if bad:
         fail(f"{label}: the all-reduced step disagrees with one process: {bad}")
     return {"launches": [seen["launches"] for seen in ranks],
+            "k1_designs": [seen["k1_designs"] for seen in ranks],
             "ms": [seen["ms"] for seen in ranks],
             "reduce_ms": [seen["reduce_ms"] for seen in ranks], "secs": secs}
 
@@ -1573,14 +1659,15 @@ def infer_run(attention_ops, stem_ops, argv: list, label: str, stem_per_forward:
 
     args = infer.parse_args(argv)
     model, batch, mesh_stage = infer.prepare(args)
-    attention_ops.fused_attention.launches = 0
-    stem_ops.stem_conv_nchw.launches = 0
+    reset_launches(attention_ops, stem_ops)
     out = infer.infer_step(model, mesh_stage, batch)
     torch.cuda.synchronize()
     got = (attention_ops.fused_attention.launches, stem_ops.stem_conv_nchw.launches)
     if got != (5, stem_per_forward):
         fail(f"{label}: kernel launches {got}, expected (5, {stem_per_forward}) in one step")
     views = batch["rgb"].shape[1]
+    designs = k1_designs(attention_ops, label, rule_split(
+        attention_ops, torch.float32, {5: TRAIN_ATTN_CALLS, 8: ATTN_CALLS}[views], {1: 1}))
     shapes = {"joints_cam": (1, 21, 3), "joints_crop_img": (1, views, 21, 2),
               "heatmap": (1, views, 21, 32, 32), "vertices": (1, 778, 3)}
     for key, shape in shapes.items():
@@ -1608,7 +1695,7 @@ def infer_run(attention_ops, stem_ops, argv: list, label: str, stem_per_forward:
     print(f"{label}: panels {sizes} bytes in {time.perf_counter() - t0:.2f} s", flush=True)
     if not all(sizes.values()):
         fail(f"{label}: an empty panel: {sizes}")
-    return {"launches": got, **step_ms}
+    return {"launches": got, "k1_designs": designs, **step_ms}
 
 
 def tensorboard_matches(run_dir: Path) -> None:
@@ -1666,12 +1753,15 @@ def vis_train_run(attention_ops, stem_ops, phase9_config: Path, out_dir: Path, l
             if dist.is_initialized():
                 fail("train.main started a process group with train.num_devices: 1")
             before = (attention_ops.fused_attention.launches, stem_ops.stem_conv_nchw.launches)
+            designs = dict(attention_ops.fused_attention.design_launches)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             hook(model, batch, epoch, mode)  # ends in its copy to the host
             calls.append({"mode": mode, "ms": (time.perf_counter() - t0) * 1e3,
                           "launches": (attention_ops.fused_attention.launches - before[0],
-                                       stem_ops.stem_conv_nchw.launches - before[1])})
+                                       stem_ops.stem_conv_nchw.launches - before[1]),
+                          "k1_designs": {d: n - designs[d] for d, n in
+                                         attention_ops.fused_attention.design_launches.items()}})
         return timed
 
     train_mod.make_vis_hook = make_timed_hook
@@ -1684,7 +1774,7 @@ def vis_train_run(attention_ops, stem_ops, phase9_config: Path, out_dir: Path, l
     for call in calls:
         print(f"vis hook ({call['mode']}, batch {EVAL_BATCH} x {EVAL_VIEWS} views): "
               f"{call['ms']:.2f} ms, launches K1={call['launches'][0]} "
-              f"K2={call['launches'][1]}", flush=True)
+              f"K2={call['launches'][1]}, K1 by design {call['k1_designs']}", flush=True)
     if [c["launches"] for c in calls] != [(5, 1), (5, 1)]:
         fail(f"vis hook: {calls}, expected a train and a val call of K1 5 and K2 1")
     names = [f"{mode}/{p}joints2d_0.png" for mode in ("train", "val") for p in ("", "projected_")]
@@ -1699,14 +1789,16 @@ def vis_train_run(attention_ops, stem_ops, phase9_config: Path, out_dir: Path, l
         print("tb/ not checked: tensorboard is absent (train.py warned and logged "
               "metrics.jsonl alone)", flush=True)
     return {**run, "hook": calls,
-            "hook_launches": tuple(map(sum, zip(*(c["launches"] for c in calls))))}
+            "hook_launches": tuple(map(sum, zip(*(c["launches"] for c in calls)))),
+            "hook_k1_designs": add_designs(*(c["k1_designs"] for c in calls))}
 
 
-def eval_nccl_run(attention_ops, stem_ops, phase8: dict, out_dir: Path) -> tuple:
+def eval_nccl_run(attention_ops, stem_ops, phase8: dict, out_dir: Path) -> dict:
     """eval.main through the env:// rendezvous at world size 1 on NCCL
     (--num-devices unset; the config with train.num_devices: 1) on phase 8's
     shards and reference checkpoint: eval_run's checks, and every metric
-    within rel 1e-6 of phase 8's one-process eval."""
+    within rel 1e-6 of phase 8's one-process eval. Returns the launches and
+    K1's by design."""
     out_dir.mkdir(parents=True)
     config = out_dir / "eval_nccl.yaml"
     config.write_text(re.sub(r"(?m)^train:$", "train:\n  num_devices: 1",
@@ -1714,8 +1806,8 @@ def eval_nccl_run(attention_ops, stem_ops, phase8: dict, out_dir: Path) -> tuple
     ckpt = out_dir / phase8["ckpt"].name
     shutil.copy(phase8["ckpt"], ckpt)
     with world_of_one():
-        launches, results = eval_run(attention_ops, stem_ops, config, ckpt,
-                                     "ResNet, world size 1 on NCCL (env://),", 1)
+        launches, results, designs = eval_run(attention_ops, stem_ops, config, ckpt,
+                                              "ResNet, world size 1 on NCCL (env://),", 1)
     worst = 0.0
     for mode, ref in phase8["results"].items():
         for key, value in ref.items():
@@ -1727,7 +1819,7 @@ def eval_nccl_run(attention_ops, stem_ops, phase8: dict, out_dir: Path) -> tuple
           f"{worst:.3e} (limit 1e-6)", flush=True)
     if not worst <= 1e-6:
         fail(f"eval.main on NCCL differs from the one-process eval by rel {worst}")
-    return launches
+    return {"launches": launches, "k1_designs": designs}
 
 
 def drivers_phase(attention_ops, stem_ops, gen, evals: dict, phase9_config: Path,
@@ -1795,13 +1887,13 @@ def replay_bundles(spec_path: str) -> None:
         load_s = time.perf_counter() - t0
         batch = torch.load(item["batch"])
         args = [batch[k].cuda() for k in INPUT_KEYS]
-        attention_ops.fused_attention.launches = 0
-        stem_ops.stem_conv_nchw.launches = 0
+        reset_launches(attention_ops, stem_ops)
         out = fn(*args)
         p50 = step_p50_ms(lambda: fn(*args), *item["repeats"])["device_ms"]
         torch.cuda.synchronize()
         seen[name] = {"launches": (attention_ops.fused_attention.launches,
                                    stem_ops.stem_conv_nchw.launches),
+                      "k1_designs": k1_designs(attention_ops, f"{name} replays"),
                       "replays": 1 + sum(item["repeats"]), "p50_ms": [p50],
                       "load_s": load_s, "exported_on": meta["device"],
                       "devices": sorted({str(v.device) for v in out.values()})}
@@ -1905,7 +1997,8 @@ def export_phase(card_line: str, tmp: Path) -> dict:
               f"eager, replay ({repeats[0]} + {repeats[1]} each): replay p50_ms "
               f"{replay[0]:.4f}, {replay[1]:.4f}; eager infer_step p50_ms {eager[0]:.4f}, "
               f"{eager[1]:.4f}; load {got['load_s']:.1f} s; {card_line}", flush=True)
-        rows[label] = {"launches": tuple(got["launches"]), "replays": n,
+        rows[label] = {"launches": tuple(got["launches"]), "k1_designs": got["k1_designs"],
+                       "replays": n,
                        "p50_ms": min(replay), "eager_p50_ms": min(eager)}
     return rows
 
@@ -1975,11 +2068,11 @@ def view_rank(out_dir: str) -> None:
         args = [batch[k] for k in INPUT_KEYS]
         mesh = vp.make_inference_mesh(1, VIEW_RANKS, group)
         forward = vp.make_view_parallel_forward(model, mesh)
-        attention_ops.fused_attention.launches = 0
-        stem_ops.stem_conv_nchw.launches = 0
+        reset_launches(attention_ops, stem_ops)
         out = forward(*args)
         torch.cuda.synchronize()
         launches = (attention_ops.fused_attention.launches, stem_ops.stem_conv_nchw.launches)
+        designs = k1_designs(attention_ops, f"view rank {dist.get_rank(group)}")
         full = vp.gather_outputs(mesh, out)
         cols = vp.make_replication_check(model, mesh)(*args)
         gathers, real = [], vp.gather_views
@@ -1997,7 +2090,8 @@ def view_rank(out_dir: str) -> None:
             step_ms = step_p50_ms(lambda: forward(*args), VIEW_WARMUP, VIEW_STEPS)["device_ms"]
         finally:
             vp.gather_views = real
-        torch.save({"launches": launches, "out": {k: v.cpu() for k, v in full.items()},
+        torch.save({"launches": launches, "k1_designs": designs,
+                    "out": {k: v.cpu() for k, v in full.items()},
                     "cols": cols.cpu(), "step_ms": step_ms,
                     "gather_ms": [a.elapsed_time(b) for a, b, _ in gathers[VIEW_WARMUP:]],
                     "gather_bytes": gathers[0][2]},
@@ -2027,8 +2121,7 @@ def view_phase(attention_ops, stem_ops, card_line: str, tmp: Path) -> dict:
         device, group = init_data_parallel("cuda")
         try:
             mesh = make_inference_mesh(1, 1, group)
-            attention_ops.fused_attention.launches = 0
-            stem_ops.stem_conv_nchw.launches = 0
+            reset_launches(attention_ops, stem_ops)
             out = make_view_parallel_forward(model, mesh)(*args)
             torch.cuda.synchronize()
             got = (attention_ops.fused_attention.launches, stem_ops.stem_conv_nchw.launches)
@@ -2039,13 +2132,13 @@ def view_phase(attention_ops, stem_ops, card_line: str, tmp: Path) -> dict:
             if got != (5, 1) or unequal:
                 fail(f"view-parallel 1x1: launches {got}, expected (5, 1); differs from the "
                      f"plain forward on {unequal}")
-            rows["view_nccl"] = {"launches": got}
+            rows["view_nccl"] = {"launches": got,
+                                 "k1_designs": k1_designs(attention_ops, "view-parallel 1x1")}
 
             # (e) infer.py --view-mesh 1x1: its steps in this rank, the drawable panels
             e_args = infer_args(CONFIG, "--view-mesh", "1x1", "--output-dir", str(tmp / "infer"))
             d, v = infer.view_mesh_shape(e_args, Config.from_yaml(CONFIG))
-            attention_ops.fused_attention.launches = 0
-            stem_ops.stem_conv_nchw.launches = 0
+            reset_launches(attention_ops, stem_ops)
             batch_e, out_e, mesh_stage = infer.view_parallel_step(e_args, d, v, device, group)
             torch.cuda.synchronize()
             got = (attention_ops.fused_attention.launches, stem_ops.stem_conv_nchw.launches)
@@ -2061,7 +2154,8 @@ def view_phase(attention_ops, stem_ops, card_line: str, tmp: Path) -> dict:
                     not all(sizes.values()):
                 fail(f"infer.py --view-mesh 1x1: launches {got}, outputs "
                      f"{ {k: tuple(t.shape) for k, t in out_e.items()} }, panels {sizes}")
-            rows["infer_view"] = {"launches": got}
+            rows["infer_view"] = {"launches": got, "k1_designs": k1_designs(
+                attention_ops, "infer.py --view-mesh 1x1")}
         finally:
             dist.destroy_process_group()
 
@@ -2091,7 +2185,7 @@ def view_phase(attention_ops, stem_ops, card_line: str, tmp: Path) -> dict:
               f"(a shared-card figure, not a scaling figure); {card_line}", flush=True)
     print(f"{label}: {secs:.1f} s in all (process start included)", flush=True)
     rows["view"] = {"launches": tuple(ranks[0]["launches"]),
-                    "step_ms": ranks[0]["step_ms"],
+                    "k1_designs": ranks[0]["k1_designs"], "step_ms": ranks[0]["step_ms"],
                     "gather_ms": float(np.median(ranks[0]["gather_ms"]))}
     return rows
 
@@ -2160,7 +2254,8 @@ def family_serving(attention_ops, stem_ops, card_line: str) -> dict:
         # relative to its largest value, as fp32's rounding scales with it
         serve_kernel_vs_plain(attention_ops, stem_ops, cfg, f"family {name}",
                               relative=("joints_cam",) if k1 == 0 else ())
-        rows[name] = {"launches": launches, "p50_ms": stats["p50_ms"], "gflops": gflops,
+        rows[name] = {"launches": launches, "k1_designs": stats["k1_designs"],
+                      "p50_ms": stats["p50_ms"], "gflops": gflops,
                       "forwards": stats["forwards"], "forward_device_ms": prof["device_ms"]}
         torch.cuda.empty_cache()
     return rows
@@ -2221,7 +2316,7 @@ def root_train_kernel_vs_plain(attention_ops, stem_ops) -> dict:
             model.root_decoder.joints_fc2.bias.copy_(mean_root)
         state = create_train_state(model, cfg, 1000)
         label = f"root training fp32, kernel path vs plain path, head x{head_scale:g}"
-        launches = (0, 0)
+        launches, designs = (0, 0), {}
         judged = head_scale != 1.0
 
         def peak() -> float:
@@ -2248,13 +2343,13 @@ def root_train_kernel_vs_plain(attention_ops, stem_ops) -> dict:
                      if p.grad is not None])))
                 del f64
                 after = peak()
-            attention_ops.fused_attention.launches = 0
-            stem_ops.stem_conv_nchw.launches = 0
+            reset_launches(attention_ops, stem_ops)
             lk = {k: float(v) for k, v in accumulate_grads(state, cfg, batch, None, accum).items()}
             nk = float(optimizer_step(state, cfg))
             torch.cuda.synchronize()
             launches = (launches[0] + attention_ops.fused_attention.launches,
                         launches[1] + stem_ops.stem_conv_nchw.launches)
+            designs = add_designs(designs, k1_designs(attention_ops, f"{label}, step {i}"))
             with plain_kernels(attention_ops, stem_ops):
                 lp = {k: float(v) for k, v in
                       accumulate_grads(plain_state, cfg, batch, None, accum).items()}
@@ -2284,7 +2379,7 @@ def root_train_kernel_vs_plain(attention_ops, stem_ops) -> dict:
                  "(16 and 2 per optimizer step)")
     if bad:
         fail(f"root training: the kernel path disagrees with the plain path: {bad}")
-    return {"launches": launches, "steps": steps}
+    return {"launches": launches, "k1_designs": designs, "steps": steps}
 
 
 def root_serving(attention_ops, stem_ops, card_line: str) -> dict:
@@ -2305,8 +2400,7 @@ def root_serving(attention_ops, stem_ops, card_line: str) -> dict:
         for _ in range(FAMILY_WARMUP):
             model(*inputs)
         torch.cuda.synchronize()
-        attention_ops.fused_attention.launches = 0
-        stem_ops.stem_conv_nchw.launches = 0
+        reset_launches(attention_ops, stem_ops)
         lat = []
         for _ in range(FAMILY_ITERS):
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -2316,6 +2410,7 @@ def root_serving(attention_ops, stem_ops, card_line: str) -> dict:
             end.synchronize()
             lat.append(start.elapsed_time(end))
         launches = (attention_ops.fused_attention.launches, stem_ops.stem_conv_nchw.launches)
+        designs = k1_designs(attention_ops, "root serving fp32")
         with plain_kernels(attention_ops, stem_ops):
             out_p = model(*inputs)
     p50 = float(np.percentile(lat, 50))
@@ -2329,7 +2424,7 @@ def root_serving(attention_ops, stem_ops, card_line: str) -> dict:
             not torch.isfinite(root).all():
         fail(f"root serving: root_joint {tuple(root.shape)} {root.dtype} not finite fp32")
     compare_paths(out, out_p, "root serving", tols={**PATH_TOLS, "root_joint": ROOT_TOL_M})
-    return {"launches": launches, "p50_ms": p50, "forwards": FAMILY_ITERS}
+    return {"launches": launches, "k1_designs": designs, "p50_ms": p50, "forwards": FAMILY_ITERS}
 
 
 def hourglass_check() -> None:
@@ -2539,7 +2634,7 @@ def int8_serving(attention_ops, stem_ops, card_line: str, tmp: Path) -> dict:
 
     out = {"q8": q8_conv_check(card_line)}
     cfg, exact = family_config(CONFIG, backbone_int8=True), Config.from_yaml(CONFIG)
-    launches, p50 = {}, {}
+    launches, designs, p50 = {}, {}, {}
     for name in DTYPES:
         for label, c in (("int8 off", exact), ("int8", cfg)):
             got, _, stats = serve(attention_ops, stem_ops, c, label, name, True,
@@ -2547,10 +2642,11 @@ def int8_serving(attention_ops, stem_ops, card_line: str, tmp: Path) -> dict:
             p50[(label, name)] = stats["p50_ms"]
             if label == "int8":
                 launches[DTYPES[name]] = got
+                designs[DTYPES[name]] = stats["k1_designs"]
         print(f"int8 serving {name}: p50_ms {p50[('int8', name)]:.4f} against "
               f"{p50[('int8 off', name)]:.4f} with int8 off ({HR_WARMUP} + 2 x {HR_ITERS} steps "
               f"each, the mesh stage included; {card_line})", flush=True)
-    out["launches"], out["p50"] = launches, p50
+    out["launches"], out["k1_designs"], out["p50"] = launches, designs, p50
 
     # the int8 outputs against the exact model's, on the same weights and request
     images = None
@@ -2598,8 +2694,7 @@ def int8_serving(attention_ops, stem_ops, card_line: str, tmp: Path) -> dict:
     if not model.cfg.backbone_int8:
         fail("the int8 config did not reach the model")
     live = infer.infer_step(model, mesh_stage, batch)
-    attention_ops.fused_attention.launches = 0
-    stem_ops.stem_conv_nchw.launches = 0
+    reset_launches(attention_ops, stem_ops)
     replay = fn(*(batch[k] for k in INPUT_KEYS))
     torch.cuda.synchronize()
     got = (attention_ops.fused_attention.launches, stem_ops.stem_conv_nchw.launches)
@@ -2644,20 +2739,20 @@ def remat_run(attention_ops, stem_ops, config: Path, remat: bool, stem_per_step:
     batch = batch_to_device(data, "cuda")
     gen = torch.Generator("cuda")
     losses, norms = [], []
-    attention_ops.fused_attention.launches = 0
-    stem_ops.stem_conv_nchw.launches = 0
+    reset_launches(attention_ops, stem_ops)
     with deterministic():
         for i in range(REMAT_STEPS):
             losses.append(accumulate_grads(state, cfg, batch, gen.manual_seed(i), accum))
             norms.append(optimizer_step(state, cfg))
         torch.cuda.synchronize()
     launches = (attention_ops.fused_attention.launches, stem_ops.stem_conv_nchw.launches)
+    designs = k1_designs(attention_ops, f"{config.stem} remat {'on' if remat else 'off'}")
     want = (10 * REMAT_STEPS, stem_per_step * REMAT_STEPS)
     if remat and launches != want:
         fail(f"{config.stem} remat on: kernel launches {launches} in {REMAT_STEPS} steps, "
              f"expected {want}")
     record = {"losses": [{k: float(v) for k, v in l.items()} for l in losses],
-              "norms": [float(n) for n in norms], "launches": launches,
+              "norms": [float(n) for n in norms], "launches": launches, "k1_designs": designs,
               "stats": {n: b.clone() for n, b in model.named_buffers()
                         if n.endswith(("running_mean", "running_var", "num_batches_tracked"))}}
     for i in range(REMAT_WARMUP):
@@ -2721,7 +2816,8 @@ def remat_check(attention_ops, stem_ops, card_line: str) -> dict:
               f"{on['ms']:.3f} peak_memory_gb={on['peak_gb']:.3f}; held before the model "
               f"{off['base_gb']:.3f} and {on['base_gb']:.3f} GB (x{on['ms'] / off['ms']:.3f} time, "
               f"the step's own peak x{own(on) / own(off):.3f}; {card_line})", flush=True)
-        rows[name] = {"launches": on["launches"], "steps": REMAT_STEPS, "bitwise": bitwise,
+        rows[name] = {"launches": on["launches"], "k1_designs": on["k1_designs"],
+                      "steps": REMAT_STEPS, "bitwise": bitwise,
                       "worst_rel": max(worst, stat_worst), "ms": {"off": off["ms"], "on": on["ms"]},
                       "peak_gb": {"off": off["peak_gb"], "on": on["peak_gb"]},
                       "held_before_gb": {"off": off["base_gb"], "on": on["base_gb"]}}
@@ -2904,22 +3000,27 @@ def cache_phase(attention_ops, stem_ops, train: dict, evals: dict, shards: dict,
     ckpt = tmp / "reference.pth"
     shutil.copy(evals["ResNet"]["ckpt"], ckpt)
     launches = {"denom": [0, 0], "cache": {d: [0, 0] for d in DTYPES}}
+    designs = {"denom": {}, "cache": {d: {} for d in DTYPES}}
 
-    def count(key, got, dtype_name="float32"):
+    def count(key, got, k1_by_design, dtype_name="float32"):
         row = launches[key] if key == "denom" else launches[key][dtype_name]
         row[0] += got[0]
         row[1] += got[1]
+        if key == "denom":
+            designs["denom"] = add_designs(designs["denom"], k1_by_design)
+        else:
+            designs["cache"][dtype_name] = add_designs(designs["cache"][dtype_name], k1_by_design)
 
     # (a) the downscaled decode
     t0 = time.perf_counter()
     out = {"downscale": downscale_check(cfg, card_line)}
     denom2 = config_variant(base, "denom2", decode_scale_denom=2)
-    got, _ = eval_run(attention_ops, stem_ops, denom2, ckpt, "decode_scale_denom 2", 1)
-    count("denom", got)
+    got, _, by_design = eval_run(attention_ops, stem_ops, denom2, ckpt, "decode_scale_denom 2", 1)
+    count("denom", got, by_design)
     run = shard_train_run(attention_ops, stem_ops, denom2, tmp / "denom2",
                           "training on shards float32, decode_scale_denom 2",
                           ["--epochs", "1", "--steps-per-epoch", "2"], stem_per_step=2)
-    count("denom", run["launches"])
+    count("denom", run["launches"], run["k1_designs"])
     print(f"phase 15 (a) (the downscaled decode): {time.perf_counter() - t0:.1f} s", flush=True)
 
     # (b) the decode cache: eval.py without, with (cold: it builds), with (warm)
@@ -2936,7 +3037,7 @@ def cache_phase(attention_ops, stem_ops, train: dict, evals: dict, shards: dict,
         warm = eval_run(attention_ops, stem_ops, evals_cached, ckpt, "with the cache, warm", 1)
         warm_decodes = decode_jpeg.calls
     for result in (cold, warm):
-        count("cache", result[0])
+        count("cache", result[0], result[2])
     builds = math.ceil(sizes["val"] / EVAL_BATCH) + math.ceil(sizes["test"] / EVAL_BATCH)
     print(f"eval.py with the cache against without: metrics bitwise equal cold "
           f"{cold[1] == plain[1]}, warm {warm[1] == plain[1]}; launches {plain[0]} / {cold[0]} / "
@@ -2956,7 +3057,7 @@ def cache_phase(attention_ops, stem_ops, train: dict, evals: dict, shards: dict,
                                 "augmentation, deterministic", epochs, stem_per_step=2)
                 for name in ("cold", "warm")]
     for run in pair:
-        count("cache", run["launches"])
+        count("cache", run["launches"], run["k1_designs"])
     cold_run, warm_run = pair
     builds = math.ceil(n / EVAL_BATCH) + math.ceil(sizes["val"] / EVAL_BATCH)
     same = cold_run["losses"] == warm_run["losses"] and cold_run["norms"] == warm_run["norms"]
@@ -2985,7 +3086,7 @@ def cache_phase(attention_ops, stem_ops, train: dict, evals: dict, shards: dict,
                                   epochs, stem_per_step=2)
             ms[kind].append(run["ms"])
             if kind == "cached":
-                count("cache", run["launches"], name)
+                count("cache", run["launches"], run["k1_designs"], name)
                 if run["decodes"]:
                     fail(f"training {name} from a built store made {run['decodes']} nvJPEG calls")
         uncached = ms["uncached"] or [shards[name]["ms"]]
@@ -3002,7 +3103,7 @@ def cache_phase(attention_ops, stem_ops, train: dict, evals: dict, shards: dict,
         config_variant(base, "loader_cached", cache_decoded=True, cache_dir=tmp / "loader_cache"),
         shards["loader"]["sps"], card_line)
     print(f"phase 15 (b) (the decode cache): {time.perf_counter() - t0:.1f} s", flush=True)
-    out["launches"] = launches
+    out["launches"], out["k1_designs"] = launches, designs
     return out
 
 
@@ -3037,15 +3138,16 @@ def main() -> None:
     print(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in _build.build_logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if ("Used" in line and "registers" in line) or "spill" in line:
                 print(f"   {name}: {line.strip()}", flush=True)
     for name in _build.KERNELS:  # jpeg.cpp is host code over nvJPEG
         counts = tensor_core_counts(libs[name])
         for fn, c in counts.items():
-            print(f"   {name}: {c} HMMA/HGMMA in {fn}", flush=True)
-        for tag in MMA_KERNELS:
-            if not any(c > 0 for fn, c in counts.items() if tag in fn):
-                fail(f"{name}: no tensor-core instruction in its {tag} kernel ({counts})")
+            print(f"   {name}: {c['HMMA']} HMMA, {c['HGMMA']} HGMMA in {fn}", flush=True)
+        for tag, op in MMA_KERNELS[name].items():
+            kernels = [c for fn, c in counts.items() if tag in fn]
+            if not kernels or not all(c[op] > 0 for c in kernels):
+                fail(f"{name}: a {tag} kernel without {op} instructions ({counts})")
 
     # 3 + 4. each kernel against its plain version, and times
     t_phase = time.perf_counter()
@@ -3057,13 +3159,13 @@ def main() -> None:
     # 5. the main path, through the entry point a user calls
     t_phase = time.perf_counter()
     cfg = Config.from_yaml(CONFIG)
-    launches, joints_cam = {}, {}
+    launches, designs, joints_cam = {}, {}, {}
     for name, dtype in DTYPES.items():
         for with_vertices in (True, False):
-            got, out, _ = serve(attention_ops, stem_ops, cfg, "main path", name, with_vertices,
-                                stem_per_forward=1)
+            got, out, stats = serve(attention_ops, stem_ops, cfg, "main path", name,
+                                    with_vertices, stem_per_forward=1)
             if with_vertices:
-                launches[dtype] = got
+                launches[dtype], designs[dtype] = got, stats["k1_designs"]
                 joints_cam[name] = out["joints_cam"]
 
     # the mesh stage on the card against the same port function on the CPU
@@ -3110,9 +3212,9 @@ def main() -> None:
     # 7. the HRNet model: serving, then training (K2 is off this path)
     t_phase = time.perf_counter()
     hr_cfg = Config.from_yaml(HR_CONFIG)
-    hr_launches = {dtype: serve(attention_ops, stem_ops, hr_cfg, "HR", name, True,
-                                stem_per_forward=0, warmup=HR_WARMUP, iters=HR_ITERS)[0]
-                   for name, dtype in DTYPES.items()}
+    hr_stats = {dtype: serve(attention_ops, stem_ops, hr_cfg, "HR", name, True,
+                             stem_per_forward=0, warmup=HR_WARMUP, iters=HR_ITERS)[2]
+                for name, dtype in DTYPES.items()}
     serve_kernel_vs_plain(attention_ops, stem_ops, hr_cfg, "HR")
     hr_train = {DTYPES[name]: train_run(attention_ops, stem_ops, name, HR_CONFIG, stem_per_step=0)
                 for name in DTYPES}
@@ -3187,18 +3289,37 @@ def main() -> None:
                 "library_ms": t["library"]["device"], "eager_ms": t["kernel"]["eager"],
                 "plain_eager_ms": t["plain"]["eager"], "library_eager_ms": t["library"]["eager"]}
 
-    def attention_record(dtype, rows, calls, n_launches, per, **extra) -> dict:
-        # the calls of one forward: sums of the per-call times and of the work
-        per_call = {s: times(rows[s]["t"]) for s in calls}
-        summed = {key: sum(n * per_call[s][key] for s, n in calls.items())
-                  for key in per_call[next(iter(calls))]}
-        work = {key: sum(n * rows[s][key] for s, n in calls.items()) for key in ("flops", "bytes")}
-        bound, by = bound_ms(work["flops"], work["bytes"], dtype)
-        return {"name": f"fused_attention[{str(dtype).removeprefix('torch.')}]{per[0]}",
-                "route": "cuda", "source": "handmvnet_tpu_torch/csrc/attention.cu",
+    def attention_record(dtype, rows, calls, launched, per, **extra) -> list:
+        # one entry per K1 design that the rows' calls take, with the sums of its
+        # calls' times and work, and its launches as the run counted them by design
+        # (``launched``); a design the run launched must have an entry
+        by_design: dict = {}
+        for s, n in calls.items():
+            by_design.setdefault(rows[s]["design"], {})[s] = n
+        if any(n and d not in by_design for d, n in launched.items()):
+            fail(f"kernels line{per[0]}: K1 launches by design {launched}, timed rows only for "
+                 f"{sorted(by_design)}")
+        entries = []
+        for design, dcalls in by_design.items():
+            per_call = {s: times(rows[s]["t"]) for s in dcalls}
+            summed = {key: sum(n * per_call[s][key] for s, n in dcalls.items())
+                      for key in per_call[next(iter(dcalls))]}
+            work = {key: sum(n * rows[s][key] for s, n in dcalls.items())
+                    for key in ("flops", "bytes")}
+            bound, by = bound_ms(work["flops"], work["bytes"], dtype)
+            both = {d: sum(n * rows[s]["design_ms"][d] for s, n in dcalls.items())
+                    for d in attention_ops.DESIGNS
+                    if all(d in rows[s]["design_ms"] for s in dcalls)}
+            shapes = " + ".join(f"({s[0]},{s[1]}) x{n}" for s, n in dcalls.items())
+            entries.append({
+                "name": f"fused_attention[{str(dtype).removeprefix('torch.')}]{per[0]} {design}",
+                "route": "cuda", "source": K1_SOURCES[design],
                 "replaces": "handmvnet_tpu/ops/pallas/attention.py:69",
-                "launches": n_launches, "max_abs_err": max(r["err"] for r in rows.values()),
-                **summed, "bound_ms": bound, "bound_by": by, "per": per[1], **extra}
+                "launches": launched.get(design, 0),
+                "max_abs_err": max(rows[s]["err"] for s in dcalls),
+                **summed, "bound_ms": bound, "bound_by": by, "per": per[1],
+                "design": design, "design_calls": shapes, "design_ms": both, **extra})
+        return entries
 
     def stem_record(dtype, r, n_launches, per, **extra) -> dict:
         return {"name": f"stem_conv[{str(dtype).removeprefix('torch.')}]{per[0]}",
@@ -3209,15 +3330,15 @@ def main() -> None:
 
     kernels = []
     for dtype in DTYPES.values():
-        kernels.append(attention_record(
-            dtype, attn[dtype], ATTN_CALLS, launches[dtype][0],
+        kernels.extend(attention_record(
+            dtype, attn[dtype], ATTN_CALLS, designs[dtype],
             ("", "forward: (168,168) x2 + (21,147) + (21,21) x2")))
     for dtype in DTYPES.values():
         kernels.append(stem_record(dtype, stem[dtype], launches[dtype][1],
                                    ("", "forward: x [8, 3, 256, 256]")))
     for dtype in DTYPES.values():
-        kernels.append(attention_record(
-            dtype, train_attn[dtype], TRAIN_ATTN_CALLS, train[dtype]["launches"][0],
+        kernels.extend(attention_record(
+            dtype, train_attn[dtype], TRAIN_ATTN_CALLS, train[dtype]["k1_designs"],
             ("/train", "microbatch forward at batch 8: (105,105) x2 + (21,84) + (21,21) x2"),
             backward="PyTorch ops (ops/attention.py::attention_backward)",
             backward_ms=attn_bwd[dtype]["ms"], backward_max_abs_err=attn_bwd[dtype]["err"]))
@@ -3229,12 +3350,12 @@ def main() -> None:
             backward_max_abs_err=stem_bwd[dtype]["err"]))
     # the HR paths call K1 at the same shapes: their times are the rows above
     for dtype in DTYPES.values():
-        kernels.append(attention_record(
-            dtype, attn[dtype], ATTN_CALLS, hr_launches[dtype][0],
+        kernels.extend(attention_record(
+            dtype, attn[dtype], ATTN_CALLS, hr_stats[dtype]["k1_designs"],
             ("/hr", "HRNet forward: (168,168) x2 + (21,147) + (21,21) x2")))
     for dtype in DTYPES.values():
-        kernels.append(attention_record(
-            dtype, train_attn[dtype], TRAIN_ATTN_CALLS, hr_train[dtype]["launches"][0],
+        kernels.extend(attention_record(
+            dtype, train_attn[dtype], TRAIN_ATTN_CALLS, hr_train[dtype]["k1_designs"],
             ("/hr_train", "HRNet microbatch forward at batch 8: (105,105) x2 + (21,84) + "
              "(21,21) x2"),
             backward="PyTorch ops (ops/attention.py::attention_backward)",
@@ -3242,21 +3363,21 @@ def main() -> None:
     # eval runs fp32: its rows carry the fp32 launches of phase 8's eval runs
     fp32 = torch.float32
     eval_calls = TRAIN_ATTN_CALLS  # the training microbatch's shapes, at batch 16
-    kernels.append(attention_record(
-        fp32, evals["attn"][fp32], eval_calls, evals["ResNet"]["launches"][0],
+    kernels.extend(attention_record(
+        fp32, evals["attn"][fp32], eval_calls, evals["ResNet"]["k1_designs"],
         ("/eval", "eval forward at batch 16 x 5 views: (105,105) x2 + (21,84) + (21,21) x2")))
     kernels.append(stem_record(fp32, evals["stem"][fp32], evals["ResNet"]["launches"][1],
                                ("/eval", "eval forward: x [80, 3, 256, 256]")))
-    kernels.append(attention_record(
-        fp32, evals["attn"][fp32], eval_calls, evals["HR"]["launches"][0],
+    kernels.extend(attention_record(
+        fp32, evals["attn"][fp32], eval_calls, evals["HR"]["k1_designs"],
         ("/eval_hr", "HRNet eval forward at batch 16 x 5 views: (105,105) x2 + (21,84) + "
          "(21,21) x2")))
     # phase 9's train.main runs (steps and validation forwards) at the training
     # microbatch's shapes: their times are the /train rows'
     for dtype in DTYPES.values():
         name = str(dtype).removeprefix("torch.")
-        kernels.append(attention_record(
-            dtype, train_attn[dtype], TRAIN_ATTN_CALLS, shards[name]["launches"][0],
+        kernels.extend(attention_record(
+            dtype, train_attn[dtype], TRAIN_ATTN_CALLS, shards[name]["k1_designs"],
             ("/train_shards", "train.py on shards: microbatch forward at batch 8 (validation "
              "at batch 16): (105,105) x2 + (21,84) + (21,21) x2"),
             backward="PyTorch ops (ops/attention.py::attention_backward)",
@@ -3267,21 +3388,21 @@ def main() -> None:
              "(validation [80, 3, 256, 256])"),
             backward="torch.nn.grad.conv2d_weight", backward_ms=stem_bwd[dtype]["ms"],
             backward_max_abs_err=stem_bwd[dtype]["err"]))
-    kernels.append(attention_record(
-        fp32, train_attn[fp32], TRAIN_ATTN_CALLS, shards["hr"]["launches"][0],
+    kernels.extend(attention_record(
+        fp32, train_attn[fp32], TRAIN_ATTN_CALLS, shards["hr"]["k1_designs"],
         ("/hr_train_shards", "HR train.py on shards: microbatch forward at batch 8 "
          "(validation at batch 16)"),
         backward="PyTorch ops (ops/attention.py::attention_backward)",
         backward_ms=attn_bwd[fp32]["ms"], backward_max_abs_err=attn_bwd[fp32]["err"]))
     # phase 10's runs, at the training microbatch's shapes: their times are the /train rows'
     dp_runs = {
-        "/train_dp": (tuple(map(sum, zip(*dp["launches"][0]))),
+        "/train_dp": (tuple(map(sum, zip(*dp["launches"][0]))), dp["k1_designs"][0],
                       "rank 0 of 2 sharing the card over gloo, 4 steps (rank 1 as many)"),
-        "/train_dp_nccl": (dp_nccl["launches"], "train.py at world size 1 on NCCL, 1 epoch "
-                           "(validation at batch 16)")}
-    for label, ((k1, k2), what) in dp_runs.items():
-        kernels.append(attention_record(
-            fp32, train_attn[fp32], TRAIN_ATTN_CALLS, k1,
+        "/train_dp_nccl": (dp_nccl["launches"], dp_nccl["k1_designs"], "train.py at world size "
+                           "1 on NCCL, 1 epoch (validation at batch 16)")}
+    for label, ((_, k2), by_design, what) in dp_runs.items():
+        kernels.extend(attention_record(
+            fp32, train_attn[fp32], TRAIN_ATTN_CALLS, by_design,
             (label, f"{what}: microbatch forward at batch 8: (105,105) x2 + (21,84) + (21,21) "
              "x2"),
             backward="PyTorch ops (ops/attention.py::attention_backward)",
@@ -3294,8 +3415,8 @@ def main() -> None:
     # eval.py on NCCL at the /eval shapes (batch 16 x 5 views: the /eval rows' times)
     infer_calls = TRAIN_ATTN_CALLS  # the training microbatch's shapes, at batch 1
     for label, key, what in (("/infer", "infer", "ResNet"), ("/infer_hr", "infer HR", "HRNet")):
-        kernels.append(attention_record(
-            fp32, drivers["attn"], infer_calls, drivers[key]["launches"][0],
+        kernels.extend(attention_record(
+            fp32, drivers["attn"], infer_calls, drivers[key]["k1_designs"],
             (label, f"infer.py {what} step at batch 1 x 5 views: (105,105) x2 + (21,84) + "
              "(21,21) x2"), step_device_ms=drivers[key]["device_ms"],
             step_wall_ms=drivers[key]["wall_ms"]))
@@ -3303,13 +3424,14 @@ def main() -> None:
                                ("/infer", "infer.py ResNet step: x [5, 3, 256, 256]"),
                                step_device_ms=drivers["infer"]["device_ms"],
                                step_wall_ms=drivers["infer"]["wall_ms"]))
-    dp_evals = {"/eval_dp": (drivers["eval_dp"], "eval.py at world size 1 on NCCL")}
+    dp_evals = {"/eval_dp": (drivers["eval_dp"]["launches"], drivers["eval_dp"]["k1_designs"],
+                             "eval.py at world size 1 on NCCL")}
     if drivers["vis"]:
-        dp_evals["/vis"] = (drivers["vis"]["hook_launches"],
+        dp_evals["/vis"] = (drivers["vis"]["hook_launches"], drivers["vis"]["hook_k1_designs"],
                             "train.py's vis hook, a train and a val batch")
-    for label, ((k1, k2), what) in dp_evals.items():
-        kernels.append(attention_record(
-            fp32, evals["attn"][fp32], eval_calls, k1,
+    for label, ((_, k2), by_design, what) in dp_evals.items():
+        kernels.extend(attention_record(
+            fp32, evals["attn"][fp32], eval_calls, by_design,
             (label, f"{what}: forward at batch 16 x 5 views: (105,105) x2 + (21,84) + "
              "(21,21) x2")))
         kernels.append(stem_record(fp32, evals["stem"][fp32], k2,
@@ -3325,13 +3447,13 @@ def main() -> None:
                  "op_dispatch_ms_per_forward": serving["dispatch"]["per_forward_ms"]}
         replays = row["replays"]
         if key == "export_hr":  # the HO3D HR config's 5 views: the /infer_hr rows' shapes
-            kernels.append(attention_record(
-                fp32, drivers["attn"], infer_calls, row["launches"][0],
+            kernels.extend(attention_record(
+                fp32, drivers["attn"], infer_calls, row["k1_designs"],
                 (label, f"{what}, {replays} replays: (105,105) x2 + (21,84) + (21,21) x2"),
                 **extra))
             continue
-        kernels.append(attention_record(
-            fp32, attn[fp32], ATTN_CALLS, row["launches"][0],
+        kernels.extend(attention_record(
+            fp32, attn[fp32], ATTN_CALLS, row["k1_designs"],
             (label, f"{what}, {replays} replays: (168,168) x2 + (21,147) + (21,21) x2"),
             **extra))
         kernels.append(stem_record(fp32, stem[fp32], row["launches"][1],
@@ -3347,7 +3469,7 @@ def main() -> None:
             if key == "view" else {}
         calls = infer_calls if key == "infer_view" else ATTN_CALLS
         rows_k1 = drivers["attn"] if key == "infer_view" else attn[fp32]
-        kernels.append(attention_record(fp32, rows_k1, calls, row["launches"][0],
+        kernels.extend(attention_record(fp32, rows_k1, calls, row["k1_designs"],
                                         (label, f"{what}: the fuse stage over every view"),
                                         **extra))
         stem_rows = {"view": (serving["stem"], "x [4, 3, 256, 256]"),
@@ -3358,14 +3480,13 @@ def main() -> None:
     # phase 13's: the family's forwards call K1 and K2 at the main path's shapes (its
     # rows' times); the root branch adds its three calls at serving and in training
     fam = family["serving"]
-    fam_k1 = sum(r["launches"][0] for r in fam.values())
     fam_k2 = sum(r["launches"][1] for r in fam.values())
     by_type = {name: {"launches": r["launches"], "forwards": r["forwards"],
                       "p50_ms": r["p50_ms"], "forward_gflops": r["gflops"],
                       "forward_device_ms": r["forward_device_ms"]}
                for name, r in fam.items()}
-    kernels.append(attention_record(
-        fp32, attn[fp32], ATTN_CALLS, fam_k1,
+    kernels.extend(attention_record(
+        fp32, attn[fp32], ATTN_CALLS, add_designs(*(r["k1_designs"] for r in fam.values())),
         ("/family", "ResNet 18/34/50/101/152 at early_return 3 on the DexYCB model: "
          "(168,168) x2 + (21,147) + (21,21) x2 a forward (none on the learnable-query "
          "fusion)"), by_model=by_type))
@@ -3375,8 +3496,8 @@ def main() -> None:
     root_calls = {**ATTN_CALLS, **{s: 1 for s in ROOT_ATTN_SHAPES}}
     root_rows = {**attn[fp32], **family["root_attn"][fp32]}
     rs = family["root_serving"]
-    kernels.append(attention_record(
-        fp32, root_rows, root_calls, rs["launches"][0],
+    kernels.extend(attention_record(
+        fp32, root_rows, root_calls, rs["k1_designs"],
         ("/root", "absolute-root DexYCB model b1 x 8: the main path's 5 calls + (8,8) + (1,7) "
          "+ (1,1)"), step_p50_ms=rs["p50_ms"],
         bf16_max_abs_err=max(r["err"] for r in family["root_attn"][torch.bfloat16].values())))
@@ -3386,8 +3507,8 @@ def main() -> None:
     root_train_calls = {**TRAIN_ATTN_CALLS, **{s: 1 for s in ROOT_TRAIN_ATTN_SHAPES}}
     root_train_rows = {**train_attn[fp32], **family["root_train_attn"][fp32]}
     rt = family["root_train"]
-    kernels.append(attention_record(
-        fp32, root_train_rows, root_train_calls, rt["launches"][0],
+    kernels.extend(attention_record(
+        fp32, root_train_rows, root_train_calls, rt["k1_designs"],
         ("/root_train", f"root_relative off, HO3D release recipe, {rt['steps']} steps: "
          "microbatch forward at batch 8: (105,105) x2 + (21,84) + (21,21) x2 + (5,5) + (1,4) "
          "+ (1,1)"),
@@ -3410,8 +3531,8 @@ def main() -> None:
         extra = {"step_p50_ms": int8["p50"][("int8", name)],
                  "int8_off_step_p50_ms": int8["p50"][("int8 off", name)],
                  "forward_device_ms": int8[f"device_ms_{name}"]}
-        kernels.append(attention_record(
-            dtype, attn[dtype], ATTN_CALLS, int8["launches"][dtype][0],
+        kernels.extend(attention_record(
+            dtype, attn[dtype], ATTN_CALLS, int8["k1_designs"][dtype],
             ("/int8", "model.backbone_int8 main path b1 x 8 (the eval_fps protocol, "
              f"{HR_WARMUP} + 2 x {HR_ITERS}): (168,168) x2 + (21,147) + (21,21) x2"), **extra))
         kernels.append(stem_record(
@@ -3423,8 +3544,9 @@ def main() -> None:
                        "peak_memory_gb": r["peak_gb"], "held_before_gb": r["held_before_gb"],
                        "bitwise_equal_to_off": r["bitwise"]}
                 for name, r in remat.items()}
-    kernels.append(attention_record(
-        fp32, train_attn[fp32], TRAIN_ATTN_CALLS, sum(r["launches"][0] for r in remat.values()),
+    kernels.extend(attention_record(
+        fp32, train_attn[fp32], TRAIN_ATTN_CALLS,
+        add_designs(*(r["k1_designs"] for r in remat.values())),
         ("/remat", f"train.remat on, HO3D ResNet and HR release recipes, {REMAT_STEPS} steps "
          "each: microbatch forward at batch 8: (105,105) x2 + (21,84) + (21,21) x2"),
         backward="PyTorch ops (ops/attention.py::attention_backward)",
@@ -3441,9 +3563,9 @@ def main() -> None:
     steps = decode["steps"]
     denom_extra = {"downscale_device_ms": {d: r["ms"] for d, r in decode["downscale"].items()},
                    "downscale_frames": EVAL_BATCH * EVAL_VIEWS}
-    k1, k2 = decode["launches"]["denom"]
-    kernels.append(attention_record(
-        fp32, train_attn[fp32], TRAIN_ATTN_CALLS, k1,
+    k2 = decode["launches"]["denom"][1]
+    kernels.extend(attention_record(
+        fp32, train_attn[fp32], TRAIN_ATTN_CALLS, decode["k1_designs"]["denom"],
         ("/denom", "decode_scale_denom 2 (240 x 320 frames): eval.py and 2 training steps: "
          "microbatch forward at batch 8 (eval and validation at batch 16): (105,105) x2 + "
          "(21,84) + (21,21) x2"),
@@ -3460,13 +3582,13 @@ def main() -> None:
                    "store_bytes": decode["loader"]["bytes"]}
     for dtype in DTYPES.values():
         name = str(dtype).removeprefix("torch.")
-        k1, k2 = decode["launches"]["cache"][name]
+        k2 = decode["launches"]["cache"][name][1]
         what = ("eval.py cold and warm, train.py cold and warm (no augmentation) and one "
                 "augmented run" if name == "float32" else "two augmented train.py runs")
         extra = {**cache_extra, "ms_per_step": steps[name]["runs_ms"],
                  "uncached_ms_per_step": steps[name]["uncached_runs_ms"]}
-        kernels.append(attention_record(
-            dtype, train_attn[dtype], TRAIN_ATTN_CALLS, k1,
+        kernels.extend(attention_record(
+            dtype, train_attn[dtype], TRAIN_ATTN_CALLS, decode["k1_designs"]["cache"][name],
             ("/cache", f"cache_decoded, {what}: microbatch forward at batch 8 (eval and "
              "validation at batch 16): (105,105) x2 + (21,84) + (21,21) x2"),
             backward="PyTorch ops (ops/attention.py::attention_backward)",

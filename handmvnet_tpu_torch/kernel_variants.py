@@ -1,7 +1,8 @@
-"""Variants of the port's kernels (csrc/stem.cu, csrc/attention.cu), built side
-by side and timed at the main-path shapes on the card:
-``python -m handmvnet_tpu_torch.kernel_variants {stem,attention}
-[--dtype float32|bfloat16] [--against DIR]``
+"""Variants of the port's kernels (csrc/stem.cu, csrc/attention.cu,
+csrc/attention_tiles.cu), built side by side and timed at the main-path shapes
+on the card:
+``python -m handmvnet_tpu_torch.kernel_variants {stem,attention,attention_tiles}
+[--dtype float32|bfloat16] [--batch 1,8,16] [--against DIR]``
 
 Each variant is the kernel's source with text substitutions: another output
 tile or key slice, or one phase of the kernel taken out. Each is compiled by
@@ -10,7 +11,15 @@ same C entry at the main path's shapes, and timed as a CUDA graph of 20
 calls, inputs warm in L2, in turns with the others and with one library call
 of the same function (``F.conv2d``, SDPA). The stem runs on x [8, 3, 256,
 256], the model's NHWC image viewed as NCHW; attention runs one forward's
-five calls, (168, 168) x2, (21, 147), (21, 21) x2, on [b, n, h, d] views.
+five calls on [b, n, h, d] views: at batch 1 the serving forward's, (168, 168)
+x2, (21, 147), (21, 21) x2, at a larger batch (``--batch``, a list) a
+training or eval microbatch's, (105, 105) x2, (21, 84), (21, 21) x2.
+``attention_tiles`` (K1's "query_tiles" design) is timed beside the
+unchanged "key_split" kernel (attention.cu), at every batch of the list:
+the sweep that fixes ``ops/attention.py::attention_design``'s rule. Its
+fp32 variants change a block's query rows (32) or its warps (4, 16); the
+bf16 kernel's block is wgmma's one warpgroup of 64 rows (the two-warpgroup
+block it was timed against is in PERF.md).
 Variants with a phase taken out compute wrong results by design: their times
 say how much of the kernel's time that phase holds.
 
@@ -43,6 +52,7 @@ from handmvnet_tpu_torch.profile_forward import graph_ms
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # the C entries' dtype argument
 ATTN_CALLS = {(168, 168): 2, (21, 147): 1, (21, 21): 2}  # (Nq, Nk): launches per forward
+BATCH_ATTN_CALLS = {(105, 105): 2, (21, 84): 1, (21, 21): 2}  # a batched microbatch's
 
 
 def _subs(**consts: int) -> list:
@@ -108,16 +118,32 @@ VARIANTS = {
     ("attention", "bfloat16"): {
         "source": [],
     },
+    ("attention_tiles", "bfloat16"): {
+        "source": [],
+    },
+    ("attention_tiles", "float32"): {
+        "source": [],
+        "rows_32": _subs(kF32Rows=32),
+        "warps_4": _subs(kF32Warps=4),
+        "warps_16": _subs(kF32Warps=16),
+        # phases taken out: the products (their loads and splits go too), the merge
+        "no_s_mma": _drop("      mma_tf32x3(s[j], ah, al, bh, bl);", "      (void)ah, (void)al;"),
+        "no_pv_mma": _drop("      mma_tf32x3(acc[dt], ph, pl, bh, bl);",
+                           "      (void)ph, (void)pl;"),
+        "no_merge": _drop("      if (l_s[w][row] > 0.f) l += l_s[w][row] * exp2f(m_s[w][row] - m);",
+                          "      l += 1.f;"),
+    },
 }
 
 
 def _entry(lib: ctypes.CDLL, kernel: str):
+    """The library's C entry point, its argument types declared."""
     if kernel == "stem":
         fn = lib.hmv_stem_conv
         fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
                        + [ctypes.c_longlong] * 4 + [ctypes.c_void_p])
     else:
-        fn = lib.hmv_attention_fwd
+        fn = lib.hmv_attention_tiles_fwd if kernel == "attention_tiles" else lib.hmv_attention_fwd
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                        + [ctypes.c_longlong] * 12 + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -184,27 +210,30 @@ def stem_cases(entries: dict, dtype) -> tuple[dict, dict, float]:
     return fns, errs, float(ref.float().abs().max())
 
 
-def attention_cases(entries: dict, dtype) -> tuple[dict, dict, float]:
-    """{(name, shape): call} for each variant and SDPA at each (Nq, Nk),
-    {name: max error over the shapes}, max|ref|."""
+def attention_cases(entries: dict, dtype, batch: int = 1) -> tuple[dict, dict, float]:
+    """{(name, shape): call} for each variant and SDPA at each (Nq, Nk) of
+    ``batch``'s forward, {name: max error over the shapes}, max|ref|."""
     g = torch.Generator("cuda").manual_seed(0)
     scale = 128 ** -0.5
     fns, errs, ref_max = {}, {}, 0.0
-    for nq, nk in ATTN_CALLS:
-        q, k, v = (torch.randn(1, n, 8, 128, generator=g, device="cuda").to(dtype).transpose(1, 2)
-                   for n in (nq, nk, nk))
+    for nq, nk in (ATTN_CALLS if batch == 1 else BATCH_ATTN_CALLS):
+        q, k, v = (torch.randn(batch, n, 8, 128, generator=g, device="cuda").to(dtype)
+                   .transpose(1, 2) for n in (nq, nk, nk))
         ref = attention_plain(q, k, v, scale)
         ref_max = max(ref_max, float(ref.float().abs().max()))
         for name, fn in entries.items():
-            o = torch.empty((1, nq, 8, 128), dtype=dtype, device="cuda").transpose(1, 2)
+            o = torch.empty((batch, nq, 8, 128), dtype=dtype, device="cuda").transpose(1, 2)
 
             def call(fn=fn, q=q, k=k, v=v, o=o, nq=nq, nk=nk):
                 _check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                          DTYPE_CODES[dtype], 1, 8, nq, nk, 128, *q.stride()[:3],
+                          DTYPE_CODES[dtype], batch, 8, nq, nk, 128, *q.stride()[:3],
                           *k.stride()[:3], *v.stride()[:3], *o.stride()[:3], scale,
                           torch.cuda.current_stream().cuda_stream))
 
-            call()
+            try:
+                call()
+            except RuntimeError:  # a shape the kernel refuses (attention_tiles: nk too large)
+                continue
             torch.cuda.synchronize()
             errs[name] = max(errs.get(name, 0.0), float((o.float() - ref.float()).abs().max()))
             fns[(name, (nq, nk))] = call
@@ -213,10 +242,20 @@ def attention_cases(entries: dict, dtype) -> tuple[dict, dict, float]:
     return fns, errs, ref_max
 
 
+def _time(fns: dict) -> dict:
+    """us per call of each function, in turns a b .. b a a b, the least kept."""
+    us = {key: float("inf") for key in fns}
+    for key in list(fns) + list(reversed(fns)) + list(fns):
+        us[key] = min(us[key], graph_ms(fns[key], calls=20, replays=20) * 1e3)
+    return us
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("kernel", choices=("stem", "attention"))
+    parser.add_argument("kernel", choices=("stem", "attention", "attention_tiles"))
     parser.add_argument("--dtype", choices=sorted(DTYPES), default="float32")
+    parser.add_argument("--batch", default="1",
+                        help="attention: batches to time, comma-separated (1 = serving shapes)")
     parser.add_argument("--against", type=Path, default=None,
                         help="another checkout whose kernel source is timed beside these")
     args = parser.parse_args(argv)
@@ -231,27 +270,34 @@ def main(argv=None) -> None:
     dtype = DTYPES[args.dtype]
     entries = build(args.kernel, VARIANTS[(args.kernel, args.dtype)],
                     _build.BUILD_DIR / "variants" / f"{args.kernel}-{args.dtype}", args.against)
-    cases = stem_cases if args.kernel == "stem" else attention_cases
-    fns, errs, ref_max = cases(entries, dtype)
+    if args.kernel == "attention_tiles":  # the other design, as the port builds it
+        entries["key_split"] = _entry(_build.load("attention"), "attention")
+    runs = []
+    for batch in ([1] if args.kernel == "stem" else [int(b) for b in args.batch.split(",")]):
+        if args.kernel == "stem":
+            fns, errs, ref_max = stem_cases(entries, dtype)
+            us, per_call = _time(fns), {}
+        else:
+            fns, errs, ref_max = attention_cases(entries, dtype, batch)
+            calls = ATTN_CALLS if batch == 1 else BATCH_ATTN_CALLS
+            per_call = {}  # {name: {(Nq, Nk): us}}, and us per forward (its five calls)
+            for (name, shape), t in _time(fns).items():
+                per_call.setdefault(name, {})[shape] = t
+            us = {name: sum(calls[s] * t for s, t in by_shape.items())
+                  for name, by_shape in per_call.items() if len(by_shape) == len(calls)}
+        for name in per_call or us:
+            err = f" max_abs_err={errs[name]:.3e}" if name in errs else ""
+            total = f"{us[name]:.2f} us" if name in us else "refused at some shape"
+            shapes = "".join(f" ({s[0]},{s[1]}) {c:.2f}"
+                             for s, c in per_call.get(name, {}).items())
+            print(f"batch {batch} {name}: {total}{' per call' + shapes if shapes else ''}{err}",
+                  flush=True)
+        runs.append({"batch": batch, "us": us, "max_abs_err": errs, "max_abs_ref": ref_max,
+                     "per_call_us": {name: {f"{s[0]},{s[1]}": c for s, c in by_shape.items()}
+                                     for name, by_shape in per_call.items()}})
+    print(json.dumps({"device": torch.cuda.get_device_name(0), "card": smi.stdout.strip(),
+                      "kernel": args.kernel, "dtype": args.dtype, "runs": runs}))
 
-    us = {key: float("inf") for key in fns}
-    for key in list(fns) + list(reversed(fns)) + list(fns):
-        us[key] = min(us[key], graph_ms(fns[key], calls=20, replays=20) * 1e3)
-    per_call = {}  # attention: {name: {(Nq, Nk): us}}, and us per forward (five calls)
-    if args.kernel == "attention":
-        for (name, shape), t in us.items():
-            per_call.setdefault(name, {})[shape] = t
-        us = {name: sum(ATTN_CALLS[s] * t for s, t in calls.items())
-              for name, calls in per_call.items()}
-    for name, t in us.items():
-        err = f" max_abs_err={errs[name]:.3e}" if name in errs else ""
-        calls = "".join(f" ({s[0]},{s[1]}) {c:.2f}" for s, c in per_call.get(name, {}).items())
-        print(f"{name}: {t:.2f} us{' per call' + calls if calls else ''}{err}", flush=True)
-    print(json.dumps({"device": torch.cuda.get_device_name(0), "kernel": args.kernel,
-                      "dtype": args.dtype, "us": us, "max_abs_err": errs,
-                      "max_abs_ref": ref_max,
-                      "per_call_us": {name: {f"{s[0]},{s[1]}": c for s, c in calls.items()}
-                                      for name, calls in per_call.items()}}))
 
 if __name__ == "__main__":
     main()

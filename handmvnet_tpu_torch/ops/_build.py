@@ -1,6 +1,7 @@
 """Build and load the port's native sources (csrc/) at first use: the CUDA
-kernels (attention.cu, stem.cu) and the nvJPEG binding (jpeg.cpp, host code
-linked with the toolkit's libnvjpeg).
+kernels (attention.cu and attention_tiles.cu, K1's two designs, and stem.cu)
+and the nvJPEG binding (jpeg.cpp, host code linked with the toolkit's
+libnvjpeg).
 
 Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared
 library with a plain C interface, in ``build/kernels/`` at the repository root
@@ -26,10 +27,11 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 # name: (source file, flags after the source); the kernels are the .cu sources
 SOURCES = {
     "attention": ("attention.cu", ()),
+    "attention_tiles": ("attention_tiles.cu", ()),
     "stem": ("stem.cu", ()),
     "jpeg": ("jpeg.cpp", ("-lnvjpeg",)),
 }
-KERNELS = ("attention", "stem")
+KERNELS = ("attention", "attention_tiles", "stem")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

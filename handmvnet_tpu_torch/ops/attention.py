@@ -3,8 +3,13 @@ handmvnet_tpu/ops/pallas/attention.py).
 
 The core is the custom op ``hmv::fused_attention`` (``torch.library``), so
 that ``torch.export`` keeps it as one node of a graph. Its CUDA
-implementation launches the hand-written kernel (csrc/attention.cu) or
-raises; its CPU implementation computes ``attention_plain``. Both return
+implementation launches one of two hand-written kernels or raises:
+``attention_design`` picks, from the call's dtype and shape, between
+"key_split" (csrc/attention.cu: 16 query rows a block, its warps splitting
+the keys; fp32 at batch 1) and "query_tiles" (csrc/attention_tiles.cu: up to
+64 query rows of one (batch, head) a block, Q, K and V loaded once by TMA;
+bf16, and fp32 at the batched training and eval shapes). Its CPU
+implementation computes ``attention_plain``. Both return
 the kernel's layout, a [B, Nq, H, D] tensor seen as [B, H, Nq, D], and so
 does its fake, whose shapes and strides ``torch.export`` traces with. Its
 backward is ``attention_backward``, PyTorch ops that mirror the JAX
@@ -24,6 +29,33 @@ from handmvnet_tpu_torch.ops import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIM = 128  # the kernel's head width (dim_head of every fusion block)
+DESIGNS = ("key_split", "query_tiles")
+# the most keys a "query_tiles" block holds: K and V beside the block's query
+# rows in shared memory. The rule is pure, so it holds its own copy of the
+# library's hmv_attention_tiles_max_keys; the first CUDA launch of the design
+# checks the two agree (_entry).
+TILE_MAX_KEYS = {torch.float32: 128, torch.bfloat16: 192}
+# fp32 takes "query_tiles" from this many (batch, head) pairs, and only where
+# "key_split" would need more than one wave of blocks (16 query rows of one pair
+# each) on the card's SMS streaming multiprocessors: below that, key_split's many
+# small blocks finish first. bf16 takes "query_tiles" wherever the keys fit: it
+# was faster at every shape timed, batch 1 included. kernel_variants.py's sweep
+# on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md, "K1's two designs").
+TILE_MIN_PAIRS_F32 = 64
+SMS = 132  # the SMs of the H100 SXM the sweep ran on
+
+
+def attention_design(dtype: torch.dtype, batch: int, heads: int, nq: int, nk: int) -> str:
+    """Which K1 kernel ``fused_attention`` launches for CUDA tensors of this
+    dtype and shape, one of DESIGNS. A pure function of its arguments."""
+    if nk > TILE_MAX_KEYS[dtype]:
+        return "key_split"
+    if dtype == torch.bfloat16:
+        return "query_tiles"
+    pairs = batch * heads
+    key_split_blocks = pairs * -(-nq // 16)
+    return "query_tiles" if pairs >= TILE_MIN_PAIRS_F32 and key_split_blocks > SMS \
+        else "key_split"
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -53,10 +85,23 @@ def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: tor
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _entry():
-    lib = _build.load("attention")
-    fn = lib.hmv_attention_fwd
+_ENTRIES = {"key_split": ("attention", "hmv_attention_fwd"),
+            "query_tiles": ("attention_tiles", "hmv_attention_tiles_fwd")}
+
+
+def _entry(design: str):
+    source, name = _ENTRIES[design]
+    lib = _build.load(source)
+    fn = getattr(lib, name)
     if fn.argtypes is None:
+        if design == "query_tiles":
+            lib.hmv_attention_tiles_max_keys.argtypes = [ctypes.c_int]
+            lib.hmv_attention_tiles_max_keys.restype = ctypes.c_int
+            held = {dtype: lib.hmv_attention_tiles_max_keys(code)
+                    for dtype, code in _DTYPES.items()}
+            if held != TILE_MAX_KEYS:
+                raise RuntimeError(f"fused_attention: {source}'s tile holds {held} keys, the "
+                                   f"rule's TILE_MAX_KEYS {TILE_MAX_KEYS}")
         fn.argtypes = (
             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
             + [ctypes.c_longlong] * 12 + [ctypes.c_float, ctypes.c_void_p]
@@ -72,10 +117,9 @@ def _empty_out(q: torch.Tensor) -> torch.Tensor:
     return q.new_empty((b, nq, h, d)).transpose(1, 2)
 
 
-def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
-    """The kernel's forward on CUDA tensors (f32 or bf16, D = 128, any
-    strides with a contiguous last dim and every row starting on 16 bytes);
-    raises on what it does not take."""
+def _validate(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Raise on what neither kernel takes: they need CUDA tensors of one
+    dtype (f32 or bf16), D = 128, a contiguous last dim."""
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention: unsupported device {q.device}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -87,14 +131,36 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> 
         raise ValueError(f"fused_attention: shapes {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     b, h, nq, d = q.shape
-    nk = k.shape[2]
-    if k.shape[:2] != (b, h) or k.shape[3] != d or d != HEAD_DIM or nq < 1 or nk < 1:
+    if k.shape[:2] != (b, h) or k.shape[3] != d or d != HEAD_DIM or nq < 1 or k.shape[2] < 1:
         raise ValueError(f"fused_attention: shapes {tuple(q.shape)}, {tuple(k.shape)} "
                          f"(the kernel needs D = {HEAD_DIM})")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("fused_attention: the head dim must be contiguous")
 
-    lib, fn = _entry()
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
+    """The forward on CUDA tensors (f32 or bf16, D = 128, any strides with a
+    contiguous last dim and every row starting on 16 bytes) by the kernel
+    that ``attention_design`` picks; raises on what it does not take."""
+    _validate(q, k, v)
+    b, h, nq, _ = q.shape
+    return _run(q, k, v, scale, attention_design(q.dtype, b, h, nq, k.shape[2]))
+
+
+def launch_design(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+                  design: str) -> torch.Tensor:
+    """``_launch`` with the kernel named, one of DESIGNS, whatever the rule
+    would pick (the card tests hold each design at the same shapes). Raises
+    on what that kernel does not take; never falls over to the other."""
+    _validate(q, k, v)
+    return _run(q, k, v, scale, design)
+
+
+def _run(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+         design: str) -> torch.Tensor:
+    b, h, nq, d = q.shape
+    nk = k.shape[2]
+    lib, fn = _entry(design)
     out = _empty_out(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
@@ -102,8 +168,9 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> 
                   _DTYPES[q.dtype], b, h, nq, nk, d,
                   *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
                   float(scale), stream)
-    _build.check(lib, code, "fused_attention")
+    _build.check(lib, code, f"fused_attention ({design})")
     fused_attention.launches += 1
+    fused_attention.design_launches[design] += 1
     return out
 
 
@@ -146,3 +213,4 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 fused_attention.launches = 0  # forward kernel launches, for showing a run went through it
+fused_attention.design_launches = dict.fromkeys(DESIGNS, 0)  # the same, by design

@@ -18,20 +18,24 @@ from handmvnet_tpu.ops.pallas.attention import _attention_jnp
 from handmvnet_tpu.ops.pallas.attention import fused_attention as jax_fused_attention
 from handmvnet_tpu_torch.checkpoint import load_flax_variables
 from handmvnet_tpu_torch.models.layers import MultiHeadAttention
-from handmvnet_tpu_torch.ops.attention import attention_plain, fused_attention
+from handmvnet_tpu_torch.ops.attention import (
+    DESIGNS, attention_design, attention_plain, fused_attention)
 from torch_parity import random_flax_variables
 
 # the (Nq, Nk) pairs one b1 x v8 forward launches: self blocks over 168
 # tokens, the cross block (21 queries over 147), self blocks over 21
 MAIN_PATH_SHAPES = [(168, 168), (21, 147), (21, 21)]
+# a training microbatch's (batch 8, 5 views) and an eval batch's (16): 105
+# tokens, the cross block's 21 queries over 84, 21
+BATCHED_SHAPES = [(105, 105), (21, 84), (21, 21)]
 ATOL = 2e-5  # tests/test_pallas_attention.py's forward tolerance
 
 
-def _qkv(nq, nk, seed):
+def _qkv(nq, nk, seed, batch=1):
     rng = np.random.default_rng(seed)
-    q = rng.normal(size=(1, 8, nq, 128)).astype(np.float32)
-    k = rng.normal(size=(1, 8, nk, 128)).astype(np.float32)
-    v = rng.normal(size=(1, 8, nk, 128)).astype(np.float32)
+    q = rng.normal(size=(batch, 8, nq, 128)).astype(np.float32)
+    k = rng.normal(size=(batch, 8, nk, 128)).astype(np.float32)
+    v = rng.normal(size=(batch, 8, nk, 128)).astype(np.float32)
     return q, k, v
 
 
@@ -68,11 +72,50 @@ def test_plain_matches_pallas_interpret_bf16(nq, nk):
     np.testing.assert_allclose(ours, pallas, rtol=0, atol=2.0 ** -6 * np.abs(ours).max())
 
 
+@pytest.mark.parametrize("nq,nk", BATCHED_SHAPES)
+def test_plain_matches_pallas_interpret_at_batch_8(nq, nk):
+    """The batched shapes the "query_tiles" kernel serves, as a training
+    microbatch has them (batch 8)."""
+    q, k, v = _qkv(nq, nk, seed=nq * 1000 + nk + 8, batch=8)
+    scale = 128 ** -0.5
+    ours = fused_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                           scale).numpy()
+    pallas = np.asarray(jax_fused_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                            scale, interpret=True))
+    assert ours.shape == pallas.shape == (8, 8, nq, 128)
+    np.testing.assert_allclose(ours, pallas, atol=ATOL)
+
+
+FP32, BF16 = torch.float32, torch.bfloat16
+K, T = "key_split", "query_tiles"
+# (dtype, batch, (Nq, Nk) of the forward, the design of each call) for every
+# K1 call chip_smoke.py times or counts: serving b1 x 8 views (the main path,
+# HR, export, int8, the family, a view rank's fuse stage), infer.py at b1 x 5,
+# a training microbatch (batch 8), an eval batch (16), the absolute-root
+# branch at serving (b1, 8 views) and in training (batch 8, 5 views); and a
+# key count past both tiles
+DESIGN_CASES = [
+    (FP32, 1, MAIN_PATH_SHAPES, (K, K, K)), (BF16, 1, MAIN_PATH_SHAPES, (T, T, T)),
+    (FP32, 1, BATCHED_SHAPES, (K, K, K)), (BF16, 1, BATCHED_SHAPES, (T, T, T)),
+    (FP32, 8, BATCHED_SHAPES, (T, K, K)), (BF16, 8, BATCHED_SHAPES, (T, T, T)),
+    (FP32, 16, BATCHED_SHAPES, (T, T, T)), (BF16, 16, BATCHED_SHAPES, (T, T, T)),
+    (FP32, 1, [(8, 8), (1, 7), (1, 1)], (K, K, K)), (BF16, 1, [(8, 8), (1, 7), (1, 1)], (T, T, T)),
+    (FP32, 8, [(5, 5), (1, 4), (1, 1)], (K, K, K)), (BF16, 8, [(5, 5), (1, 4), (1, 1)], (T, T, T)),
+    (FP32, 16, [(21, 300), (21, 129)], (K, K)), (BF16, 16, [(21, 300), (21, 193)], (K, K)),
+]
+
+
+@pytest.mark.parametrize("dtype,batch,shapes,designs", DESIGN_CASES)
+def test_attention_design_at_every_timed_shape(dtype, batch, shapes, designs):
+    got = tuple(attention_design(dtype, batch, 8, nq, nk) for nq, nk in shapes)
+    assert got == designs and set(got) <= set(DESIGNS)
+
+
 def test_cpu_wrapper_takes_plain_version_and_counts_no_launch():
     q, k, v = (torch.from_numpy(a) for a in _qkv(21, 147, seed=1))
-    before = fused_attention.launches
+    before = fused_attention.launches, dict(fused_attention.design_launches)
     out = fused_attention(q, k, v, 0.1)
-    assert fused_attention.launches == before
+    assert (fused_attention.launches, fused_attention.design_launches) == before
     torch.testing.assert_close(out, attention_plain(q, k, v, 0.1), rtol=0, atol=0)
 
 

@@ -19,23 +19,31 @@ Tolerances (max |kernel - plain|):
   bf16 stem       2^-6 * max|plain|: both sides round one f32 sum of bf16
                   products to bf16, so they differ by an ulp or two of the
                   largest value;
-  bf16 attention  2^-6 * max|plain|: the kernel also rounds the softmax
+  bf16 attention  2^-6 * max|plain|: the kernels also round the softmax
                   weights p to bf16 before the p v product, as the Pallas
                   kernel does (handmvnet_tpu/ops/pallas/attention.py:46), where
-                  the plain version keeps them f32. That adds a relative 2^-9
-                  to each weight, well under the bound (the JAX package's own
-                  bf16 kernel is held to the same 2^-6 in
-                  tests/test_torch_attention.py).
+                  the plain version keeps them f32 ("query_tiles" rounds the
+                  normalised p, as Pallas; "key_split" the running one). That
+                  adds a relative 2^-9 to each weight, well under the bound
+                  (the JAX package's own bf16 kernel is held to the same 2^-6
+                  in tests/test_torch_attention.py).
+K1 has two designs (ops/attention.py::attention_design picks): each is held
+to the plain version directly (launch_design), at the shapes where the rule
+picks it and at its edges.
 Backwards (PyTorch ops, as the JAX package has no backward kernel): the
 Functions' gradients against autograd through the plain versions, fp32 1e-5
 (stem: 1e-5 x max), bf16 2^-6 x max. TF32 is switched off so that the plain
 fp32 versions are fp32.
 """
 
+import ctypes
+
 import pytest
 import torch
 
-from handmvnet_tpu_torch.ops.attention import attention_plain, fused_attention
+from handmvnet_tpu_torch.ops import _build
+from handmvnet_tpu_torch.ops.attention import (
+    DESIGNS, TILE_MAX_KEYS, attention_design, attention_plain, fused_attention, launch_design)
 from handmvnet_tpu_torch.ops.stem import stem_conv_nchw, stem_conv_plain
 
 pytestmark = pytest.mark.cuda
@@ -79,14 +87,94 @@ def test_attention_kernel_matches_plain(card, dtype, batch, nq, nk):
     assert err <= _tol(dtype, ref.float(), 2e-5), err
 
 
+@pytest.mark.parametrize("design", DESIGNS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
-def test_attention_refuses_unaligned_rows(card, dtype):
-    """cp.async needs 16-byte rows: a row stride of 129 elements is refused,
-    not computed some other way."""
+def test_attention_refuses_unaligned_rows(card, dtype, design):
+    """cp.async and TMA need 16-byte rows: a row stride of 129 elements is
+    refused by either design, not computed some other way."""
     q = torch.randn(1, 8, 21, 129, device=card, dtype=dtype)[..., :128]
     k = torch.randn(1, 8, 21, 128, device=card, dtype=dtype)
     with pytest.raises(RuntimeError, match="CUDA error"):
         fused_attention(q, k, k, 0.1)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        launch_design(q, k, k, 0.1, design)
+
+
+def _qkv(card, dtype, batch, nq, nk, layout="bnhd"):
+    g = torch.Generator(card).manual_seed(batch * 10000 + nq * 1000 + nk)
+    if layout == "bnhd":  # the model's layout: [b, n, h, d] projections viewed as [b, h, n, d]
+        return [torch.randn(batch, n, 8, 128, generator=g, device=card).to(dtype).transpose(1, 2)
+                for n in (nq, nk, nk)]
+    return [torch.randn(batch, 8, n, 128, generator=g, device=card).to(dtype)
+            for n in (nq, nk, nk)]
+
+
+def _held_to_plain(out, q, k, v, dtype):
+    ref = attention_plain(q, k, v, 128 ** -0.5)
+    assert out.shape == ref.shape and out.dtype == dtype and out.device.type == "cuda"
+    err = float((out.float() - ref.float()).abs().max())
+    assert err <= _tol(dtype, ref.float(), 2e-5), err
+
+
+# "query_tiles" (csrc/attention_tiles.cu) at the batched shapes of a training
+# microbatch (batch 8) and an eval batch (16), then its edges: a query tile of
+# 1 row, a full and a ragged bf16 warpgroup or fp32 block (64, 65), two and a
+# ragged third (128, 129); keys 1 and 5 (one 8-key tile), 176 and 177 (a
+# 32-key chunk half and just over half full), the most each dtype's tile holds
+# (TILE_MAX_KEYS: fp32 128, bf16 192) and one past it, and 300
+TILE_CASES = ([(b, nq, nk) for b in (8, 16) for nq, nk in ((105, 105), (21, 84), (21, 21))]
+              + [(2, nq, 105) for nq in (1, 64, 65, 128, 129)]
+              + [(2, 40, nk) for nk in (1, 5, 128, 129, 176, 177, 192, 193, 300)])
+
+
+@pytest.mark.parametrize("layout", ["bnhd", "bhnd"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("batch,nq,nk", TILE_CASES)
+def test_query_tiles_kernel_matches_plain(card, dtype, batch, nq, nk, layout):
+    """The "query_tiles" design called directly, on the model's strided
+    [b, n, h, d] views and on contiguous [b, h, n, d] tensors; a key count
+    past its tile is refused (the rule sends it to "key_split")."""
+    q, k, v = _qkv(card, dtype, batch, nq, nk, layout)
+    before = dict(fused_attention.design_launches)
+    if nk > TILE_MAX_KEYS[dtype]:
+        assert attention_design(dtype, batch, 8, nq, nk) == "key_split"
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            launch_design(q, k, v, 128 ** -0.5, "query_tiles")
+        return
+    out = launch_design(q, k, v, 128 ** -0.5, "query_tiles")
+    torch.cuda.synchronize()
+    assert fused_attention.design_launches["query_tiles"] == before["query_tiles"] + 1
+    _held_to_plain(out, q, k, v, dtype)
+
+
+@pytest.mark.parametrize("design", DESIGNS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("batch,nq,nk", [(8, 105, 105), (16, 21, 84), (1, 21, 21), (8, 1, 1)])
+def test_each_design_matches_plain_at_the_same_shape(card, dtype, design, batch, nq, nk):
+    """Both kernels at the shapes where the rule picks one or the other."""
+    q, k, v = _qkv(card, dtype, batch, nq, nk)
+    _held_to_plain(launch_design(q, k, v, 128 ** -0.5, design), q, k, v, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("batch,nq,nk", [(1, 168, 168), (8, 21, 84), (16, 105, 105),
+                                         (2, 21, 300)])
+def test_fused_attention_launches_the_rules_design(card, dtype, batch, nq, nk):
+    """The op launches what attention_design picks, and counts it by design;
+    the library's tile limit is the rule's."""
+    lib = _build.load("attention_tiles")
+    lib.hmv_attention_tiles_max_keys.argtypes = [ctypes.c_int]
+    lib.hmv_attention_tiles_max_keys.restype = ctypes.c_int
+    assert lib.hmv_attention_tiles_max_keys({torch.float32: 0, torch.bfloat16: 1}[dtype]) == \
+        TILE_MAX_KEYS[dtype]
+    q, k, v = _qkv(card, dtype, batch, nq, nk)
+    design = attention_design(dtype, batch, 8, nq, nk)
+    before = dict(fused_attention.design_launches)
+    out = fused_attention(q, k, v, 128 ** -0.5)
+    torch.cuda.synchronize()
+    assert {d: n - before[d] for d, n in fused_attention.design_launches.items()} == \
+        {d: int(d == design) for d in DESIGNS}
+    _held_to_plain(out, q, k, v, dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
@@ -131,6 +219,11 @@ ATTN_TRAIN_SHAPES = [(105, 105), (21, 84), (21, 21)]
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("nq,nk", ATTN_TRAIN_SHAPES)
 def test_attention_function_grads_match_plain(card, dtype, nq, nk):
+    """At batch 8, through the design the rule picks: "query_tiles" for bf16
+    at every shape and for fp32 at (105, 105)."""
+    design = attention_design(dtype, 8, 8, nq, nk)
+    assert design == "query_tiles" or (dtype == torch.float32 and nq == 21)
+    design_before = fused_attention.design_launches[design]
     g = torch.Generator(card).manual_seed(nq * 1000 + nk)
     base = [torch.randn(8, n, 8, 128, generator=g, device=card).to(dtype) for n in (nq, nk, nk)]
     grad_out = torch.randn(8, 8, nq, 128, generator=g, device=card).to(dtype)
@@ -144,6 +237,7 @@ def test_attention_function_grads_match_plain(card, dtype, nq, nk):
             assert fused_attention.launches == before + 1
         out.backward(grad_out)
         grads.append([t.grad for t in qkv])
+    assert fused_attention.design_launches[design] == design_before + 1
     for ours, ref in zip(*grads):
         assert ours.dtype == dtype and ours.device.type == "cuda"
         err = float((ours.float() - ref.float()).abs().max())

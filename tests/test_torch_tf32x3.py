@@ -1,6 +1,6 @@
 """The precision argument of the fp32 kernels, checked on the CPU.
 
-Both fp32 CUDA kernels (csrc/attention.cu, csrc/stem.cu) run every product
+The fp32 CUDA kernels (csrc/attention.cu, csrc/stem.cu) run every product
 on the tensor cores in 3xTF32 (csrc/mma.cuh): each f32 operand x is split into
 hi = tf32(x) and lo = tf32(x - hi), and a b is taken as lo_a hi_b + hi_a lo_b
 + hi_a hi_b in one f32 accumulator, 8 terms of k at a time. Here numpy
@@ -10,9 +10,12 @@ the JAX package's Pallas kernels in interpret mode at the port's fp32
 tolerances: attention 2e-5 absolute, stem 1e-5 x max|ref|. One TF32 product
 alone (hi_a hi_b) misses both; its error is printed beside each case
 (``pytest -s``) and asserted to exceed the tolerance, so the test also shows
-why the split is needed. The card holds the kernels themselves against the
-plain versions at the same tolerances (tests/test_torch_cuda.py,
-chip_smoke.py).
+why the split is needed. K1's second fp32 kernel ("query_tiles",
+csrc/attention_tiles.cu) leaves lo = x - hi unrounded for the tensor core to
+truncate, splits each row tile's keys over two warps and merges their
+softmaxes: its emulation is held to the same 2e-5 at (105, 105). The card
+holds the kernels themselves against the plain versions at the same
+tolerances (tests/test_torch_cuda.py, chip_smoke.py).
 """
 
 import jax.numpy as jnp
@@ -33,13 +36,21 @@ def tf32(x: np.ndarray) -> np.ndarray:
     return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
 
 
-def tf32_matmul(a: np.ndarray, b: np.ndarray, split: bool) -> np.ndarray:
+def tf32_truncated(x: np.ndarray) -> np.ndarray:
+    """An f32 operand as the tensor core reads it for a TF32 product: its 13
+    low mantissa bits dropped."""
+    bits = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    return (bits & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def tf32_matmul(a: np.ndarray, b: np.ndarray, split: bool, lo=tf32) -> np.ndarray:
     """a [..., M, K] @ b [..., K, N] as the tensor cores take it: per step of
     8 k, each TF32 product summed exactly and added to an f32 accumulator.
-    split: 3xTF32 (lo_a hi_b, hi_a lo_b, hi_a hi_b); else hi_a hi_b alone."""
+    split: 3xTF32 (lo_a hi_b, hi_a lo_b, hi_a hi_b); else hi_a hi_b alone.
+    lo: how x - hi becomes TF32 (rounded by cvt.rna, or truncated as read)."""
     a, b = a.astype(np.float32), b.astype(np.float32)
     a_hi, b_hi = tf32(a), tf32(b)
-    a_lo, b_lo = tf32(a - a_hi), tf32(b - b_hi)
+    a_lo, b_lo = lo(a - a_hi), lo(b - b_hi)
     terms = [(a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi)] if split else [(a_hi, b_hi)]
     acc = np.zeros(a.shape[:-1] + b.shape[-1:], np.float32)
     for k0 in range(0, a.shape[-1], K_STEP):
@@ -55,6 +66,38 @@ def attention_emulated(q, k, v, scale, split):
     s = tf32_matmul(q, np.swapaxes(k, -1, -2), split) * (np.float32(scale) * LOG2E)
     p = np.exp2(s - s.max(axis=-1, keepdims=True)).astype(np.float32)
     return tf32_matmul(p, v, split) / p.sum(axis=-1, keepdims=True, dtype=np.float32)
+
+
+def attention_tiles_emulated(q, k, v, scale, key_splits):
+    """The "query_tiles" fp32 kernel's arithmetic: S = Q K^T and each split's
+    P V in 3xTF32 with lo truncated; for each run of keys (key_splits: its
+    bounds, as a warp takes them) the max m_w, the sum l_w and O_w = P_w V_w
+    with p = exp2(s - m_w); then O = sum_w O_w exp2(m_w - m) / sum_w l_w
+    exp2(m_w - m)."""
+    s = tf32_matmul(q, np.swapaxes(k, -1, -2), True, tf32_truncated) * (np.float32(scale) * LOG2E)
+    parts = []
+    for lo, hi in zip(key_splits[:-1], key_splits[1:]):
+        m = s[..., lo:hi].max(axis=-1, keepdims=True)
+        p = np.exp2(s[..., lo:hi] - m).astype(np.float32)
+        parts.append((m, p.sum(axis=-1, keepdims=True, dtype=np.float32),
+                      tf32_matmul(p, v[..., lo:hi, :], True, tf32_truncated)))
+    m = np.max([part[0] for part in parts], axis=0)
+    total = sum(l_w * np.exp2(m_w - m) for m_w, l_w, _ in parts).astype(np.float32)
+    return sum(o_w * (np.exp2(m_w - m) / total) for m_w, _, o_w in parts).astype(np.float32)
+
+
+def test_query_tiles_fp32_holds_the_fp32_tolerance():
+    """At (105, 105) a block's row tiles take the keys in two warps: 14 tiles
+    of 8 keys, 7 each (keys 0-55 and 56-104)."""
+    rng = np.random.default_rng(210)
+    q, k, v = (rng.normal(size=(1, 8, 105, 128)).astype(np.float32) for _ in range(3))
+    scale = 128 ** -0.5
+    ref = np.asarray(jax_fused_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                         scale, interpret=True))
+    got = attention_tiles_emulated(q, k, v, scale, (0, 56, 105))
+    err = float(np.abs(got - ref).max())
+    print(f"query_tiles fp32 (105, 105): max_abs_err={err:.3e}, tolerance 2e-5")
+    assert got.shape == ref.shape and err <= 2e-5, err
 
 
 def stem_emulated(x, kernel, split):
