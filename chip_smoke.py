@@ -6,17 +6,20 @@ Phases; any failure exits nonzero and prints no result:
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from handmvnet_tpu_torch/csrc (nvcc, in parallel):
      K1's two designs, "key_split" (attention.cu) and "query_tiles"
-     (attention_tiles.cu), and K2 (stem.cu); count the tensor-core
-     instructions in each library's SASS (cuobjdump): every bf16 and fp32
-     (3xTF32) kernel must have mma.sync (HMMA), and the "query_tiles" bf16
-     kernel wgmma (HGMMA);
+     (attention_tiles.cu), and K2 (stem.cu, one design: a persistent
+     implicit GEMM on wgmma); count the tensor-core instructions in each
+     library's SASS (cuobjdump): K1's bf16 and fp32 (3xTF32) kernels must
+     have mma.sync (HMMA) but the "query_tiles" bf16 kernel, which must have
+     wgmma (HGMMA), as must both of K2's (bf16, and fp32 in 3xTF32);
   3. hold each kernel against its plain PyTorch version at the shapes of the
      b1 x v8 main path, fp32 and bf16, with the tolerance stated (K1: each
      design that takes the shape, called directly);
   4. time each kernel (K1: both designs), its plain version and one library
      call of the same function (used nowhere in the port), beside the card's
      bound; K1's rows are the design that ops/attention.attention_design
-     picks. Every run below counts K1's launches by design from 0 with its
+     picks; K2 prints its design, the copies it takes (TMA or its threads)
+     and its share of the bound, here at x [8] and at its other main-path
+     shapes in phases 6 (x [40]), 8 (x [80]) and 11 (x [5]), both dtypes. Every run below counts K1's launches by design from 0 with its
      other counts, and they must add up to K1's; where the run's batches are
      known (the serving protocol, training steps and validation, eval.py,
      infer.py, data-parallel ranks) they must be the rule's split, or the
@@ -125,6 +128,8 @@ Phases; any failure exits nonzero and prints no result:
      tensorboard is present, and the hook's ms; eval.main through the
      env:// rendezvous at world size 1 on NCCL on phase 8's shards and
      checkpoint, every metric within rel 1e-6 of phase 8's one-process eval;
+     K1 at infer's shapes and K2 at x [5, 3, 256, 256] in fp32 and bf16,
+     against their plain versions and timed;
  12. the serving structure, fp32 at full width with random weights (seed
      0): (a) export.main --device cuda --verify on the DexYCB release
      config (ResNet-50 "paper", its 8 views, b1 x 8 x 256^2), then
@@ -217,7 +222,8 @@ Phases; any failure exits nonzero and prints no result:
      cold and warm and the store's bytes on disk;
  16. a {"kernels": [...]} line, K1 an entry for each design a row's calls
      take (its calls' times, both designs' device ms, its launches as the
-     run counted them by design); the /denom and /cache rows phase 15's; the
+     run counted them by design), K2's entries with its design and the
+     copies it takes (the /infer rows with its bf16 time at x [5] too); the /denom and /cache rows phase 15's; the
      /int8 and /remat rows phase 14's;
      the HR rows carry K1's launches on the HR
      paths, the /eval rows the launches of phase 8's eval runs, the
@@ -262,12 +268,13 @@ HR_WARMUP, HR_ITERS = 20, 200
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
 # each library's tensor-core kernels, by symbol, and the instruction each must hold:
-# mma.sync (HMMA) or, for K1's "query_tiles" bf16 kernel, wgmma (HGMMA)
+# mma.sync (HMMA) or, for K1's "query_tiles" bf16 kernel and both of K2's, wgmma (HGMMA)
 MMA_KERNELS = {"attention": {"bf16_mma": "HMMA", "tf32x3_mma": "HMMA"},
                "attention_tiles": {"bf16_wgmma": "HGMMA", "tf32x3_mma": "HMMA"},
-               "stem": {"bf16_mma": "HMMA", "tf32x3_mma": "HMMA"}}
+               "stem": {"bf16_wgmma": "HGMMA", "tf32x3_wgmma": "HGMMA"}}
 K1_SOURCES = {"key_split": "handmvnet_tpu_torch/csrc/attention.cu",
               "query_tiles": "handmvnet_tpu_torch/csrc/attention_tiles.cu"}
+STEM_DESIGN = "persistent_wgmma"  # K2's one design (csrc/stem.cu)
 
 ATTN_SHAPES = ((168, 168), (21, 147), (21, 21))  # (Nq, Nk) of the 5 fusion blocks
 ATTN_CALLS = {(168, 168): 2, (21, 147): 1, (21, 21): 2}  # launches per forward
@@ -534,7 +541,8 @@ def check_attention(attention_ops, dtype, gen, shapes=ATTN_SHAPES, batch=1) -> d
 
 
 def check_stem(stem_ops, dtype, gen, shape=STEM_SHAPE) -> dict:
-    """K2 at one input shape: error vs plain, times, bound."""
+    """K2 at one input shape: error vs plain, times, bound, its design and
+    the copies it takes (stem_routes)."""
     n, h, w = shape
     # the model's layout: the NHWC images viewed as NCHW
     x = torch.randn(n, h, w, 3, generator=gen, device="cuda").to(dtype).permute(0, 3, 1, 2)
@@ -546,7 +554,9 @@ def check_stem(stem_ops, dtype, gen, shape=STEM_SHAPE) -> dict:
     err = max_err(out, ref)
     ref_max = float(ref.float().abs().max())
     tol = (1e-5 if dtype == torch.float32 else 2.0 ** -6) * ref_max
-    print(f"K2 stem_conv {dtype} x=[{n}, 3, {h}, {w}]: max_abs_err={err:.3e} tol={tol:.3e}",
+    routes = dict(zip(("load", "store"), stem_ops.stem_routes(x, out)))
+    print(f"K2 stem_conv {dtype} x=[{n}, 3, {h}, {w}] design {STEM_DESIGN} (load "
+          f"{routes['load']}, store {routes['store']}): max_abs_err={err:.3e} tol={tol:.3e}",
           flush=True)
     if out.shape != ref.shape or not err <= tol:
         fail(f"K2 disagrees with its plain version {dtype}: {err} > {tol}")
@@ -562,10 +572,11 @@ def check_stem(stem_ops, dtype, gen, shape=STEM_SHAPE) -> dict:
     nbytes = (n * 3 * h * w + 64 * 147 + n * 64 * ho * wo) * elt
     b, by = bound_ms(flops, nbytes, dtype)
     print(f"   device ms: kernel={t['kernel']['device']:.5f} plain={t['plain']['device']:.5f} "
-          f"conv2d={t['library']['device']:.5f} bound={b:.5f} ({by}); eager ms: "
+          f"conv2d={t['library']['device']:.5f} bound={b:.5f} ({by}, "
+          f"{b / t['kernel']['device']:.0%} of it); eager ms: "
           f"kernel={t['kernel']['eager']:.5f} plain={t['plain']['eager']:.5f} "
           f"conv2d={t['library']['eager']:.5f}", flush=True)
-    return {"err": err, "t": t, "bound": b, "bound_by": by}
+    return {"err": err, "t": t, "bound": b, "bound_by": by, "routes": routes}
 
 
 def check_attention_backward(attention_ops, dtype, gen, calls=TRAIN_ATTN_CALLS) -> dict:
@@ -1842,8 +1853,10 @@ def drivers_phase(attention_ops, stem_ops, gen, evals: dict, phase9_config: Path
     rows["vis"] = vis_train_run(attention_ops, stem_ops, phase9_config, tmp / "vis_train", libs)
     rows["eval_dp"] = eval_nccl_run(attention_ops, stem_ops, resnet, tmp / "eval_nccl")
     print(f"phase 11 (drivers), checks: {time.perf_counter() - t0:.1f} s", flush=True)
-    # K1 and K2 at infer's shapes (batch 1 x 5 views), for the kernel line
+    # K1 and K2 at infer's shapes (batch 1 x 5 views), for the kernel line (K2 in
+    # both dtypes: its fourth main-path shape)
     rows["attn"] = check_attention(attention_ops, torch.float32, gen, TRAIN_ATTN_SHAPES, 1)
+    rows["stem_bf16"] = check_stem(stem_ops, torch.bfloat16, gen, (EVAL_VIEWS, 256, 256))
     rows["stem"] = check_stem(stem_ops, torch.float32, gen, (EVAL_VIEWS, 256, 256))
     return rows
 
@@ -3326,7 +3339,8 @@ def main() -> None:
                 "route": "cuda", "source": "handmvnet_tpu_torch/csrc/stem.cu",
                 "replaces": "handmvnet_tpu/ops/pallas/stem.py:120",
                 "launches": n_launches, "max_abs_err": r["err"], **times(r["t"]),
-                "bound_ms": r["bound"], "bound_by": r["bound_by"], "per": per[1], **extra}
+                "bound_ms": r["bound"], "bound_by": r["bound_by"], "per": per[1],
+                "design": STEM_DESIGN, "copies": r["routes"], **extra}
 
     kernels = []
     for dtype in DTYPES.values():
@@ -3423,7 +3437,11 @@ def main() -> None:
     kernels.append(stem_record(fp32, drivers["stem"], drivers["infer"]["launches"][1],
                                ("/infer", "infer.py ResNet step: x [5, 3, 256, 256]"),
                                step_device_ms=drivers["infer"]["device_ms"],
-                               step_wall_ms=drivers["infer"]["wall_ms"]))
+                               step_wall_ms=drivers["infer"]["wall_ms"],
+                               bf16_ms=drivers["stem_bf16"]["t"]["kernel"]["device"],
+                               bf16_bound_ms=drivers["stem_bf16"]["bound"],
+                               bf16_library_ms=drivers["stem_bf16"]["t"]["library"]["device"],
+                               bf16_max_abs_err=drivers["stem_bf16"]["err"]))
     dp_evals = {"/eval_dp": (drivers["eval_dp"]["launches"], drivers["eval_dp"]["k1_designs"],
                              "eval.py at world size 1 on NCCL")}
     if drivers["vis"]:

@@ -71,6 +71,7 @@
 #include <algorithm>
 
 #include "common.cuh"
+#include "hopper.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -86,62 +87,7 @@ struct Strides {
   long long b, h, n;
 };
 
-// ---- TMA, mbarriers, wgmma -------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// wait until the barrier's phase 0 is complete (each barrier is used once)
-__device__ __forceinline__ void mbar_wait0(uint64_t* bar) {
-  asm volatile(
-      "{\n"
-      ".reg .pred done;\n"
-      "WAIT_%=:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], 0;\n"
-      "@!done bra WAIT_%=;\n"
-      "}\n" ::"r"(smem_u32(bar))
-      : "memory");
-}
-
-// one box of a 4-D tensor map (d, n, h, b) into shared memory, completing on bar
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int d0,
-                                         int n0, int h, int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(d0), "r"(n0), "r"(h), "r"(b)
-      : "memory");
-}
-
-// shared-memory matrix descriptor, 128-byte swizzle: K-major (lbo unused, sbo =
-// 1024, the stride of 8-row groups) or MN-major (lbo = the stride of 64-wide
-// panels, sbo = the stride of 8-row groups along k)
-__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
-         (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keeps the compiler from moving a register's writes below a wgmma fence or
-// its reads above a wait
-__device__ __forceinline__ void fence_reg(float& r) { asm volatile("" : "+f"(r)::"memory"); }
-__device__ __forceinline__ void fence_reg(uint32_t& r) { asm volatile("" : "+r"(r)::"memory"); }
+// ---- wgmma ----------------------------------------------------------------
 
 // d (+)= A B over 64 x 32 x 16: A (64 query rows) and B (32 keys) both K-major
 // in shared memory; d is zeroed first unless accumulate
@@ -207,15 +153,6 @@ struct Tile {
 __device__ __forceinline__ Tile block_tile(int heads, int block_rows) {
   return {static_cast<int>(blockIdx.x) / heads, static_cast<int>(blockIdx.x) % heads,
           static_cast<int>(blockIdx.y) * block_rows};
-}
-
-// dynamic shared memory starts on 16 bytes: this much more reaches 1024
-constexpr int kAlignSlack = 1024 - 16;
-
-// by pointer arithmetic on the __shared__ array, so that the compiler keeps
-// the pointer in the shared address space (ld.shared, not generic loads)
-__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
-  return raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
 }
 
 // one thread: Q rows [q0, q0 + rows) (the Q map's box) and all of K on bars[0],
@@ -296,7 +233,7 @@ attention_tiles_bf16_wgmma(__grid_constant__ const CUtensorMap qm,
     }
   }
   wgmma_commit();
-  wgmma_wait_all();
+  wgmma_wait<0>();
 #pragma unroll
   for (int c = 0; c < kChunks; ++c)
 #pragma unroll
@@ -364,7 +301,7 @@ attention_tiles_bf16_wgmma(__grid_constant__ const CUtensorMap qm,
     wgmma_n128_rs(acc, pa[ks], sw128_desc(v_s + ks * 16 * kPanelBytes,
                                           kKeys * kPanelBytes, 8 * kPanelBytes));
   wgmma_commit();
-  wgmma_wait_all();
+  wgmma_wait<0>();
 #pragma unroll
   for (int i = 0; i < 64; ++i) fence_reg(acc[i]);
 
@@ -401,15 +338,6 @@ static_assert(kMinSplits >= 1, "a block's warps cover its row tiles");
 
 __device__ __forceinline__ float lds(const unsigned char* base, int off) {
   return *reinterpret_cast<const float*>(base + off);
-}
-
-// x = hi + lo for a 3xTF32 product: hi = tf32(x) (cvt.rna, as mma.cuh), lo =
-// x - hi exactly, left for the tensor core to truncate to TF32 as it reads it
-// (its low 13 bits dropped: lo to ~2^-21 of |x| rather than ~2^-22, and one
-// cvt fewer per operand; tests/test_torch_tf32x3.py emulates it)
-__device__ __forceinline__ void split_hi(float x, uint32_t& hi, uint32_t& lo) {
-  hi = to_tf32(x);
-  lo = __float_as_uint(x - __uint_as_float(hi));
 }
 
 // A block's kF32Warps warps: R = ceil(rows / 16) row tiles (rows = its query
@@ -597,29 +525,6 @@ attention_tiles_tf32x3_mma(__grid_constant__ const CUtensorMap qm,
 }
 
 // ---- host ------------------------------------------------------------------
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
 
 // a 4-D map (d, n, h, b) over base + b*sb + h*sh + n*sn + d, boxes of `per`
 // columns x `rows` rows with the 128-byte swizzle; rows past n read as zeros.

@@ -103,6 +103,15 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) 
   lo = to_tf32(x - __uint_as_float(hi));
 }
 
+// x = hi + lo for a 3xTF32 product: hi = tf32(x) (cvt.rna, as mma.cuh), lo =
+// x - hi exactly, left for the tensor core to truncate to TF32 as it reads it
+// (its low 13 bits dropped: lo to ~2^-21 of |x| rather than ~2^-22, and one
+// cvt fewer per operand; tests/test_torch_tf32x3.py emulates it)
+__device__ __forceinline__ void split_hi(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
 // d += a * b over one 16 x 8 x 8 tile, tf32 operands
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                                          uint32_t b1) {

@@ -9,8 +9,13 @@ tile or key slice, or one phase of the kernel taken out. Each is compiled by
 nvcc with the port's flags into build/kernels/variants/, called through the
 same C entry at the main path's shapes, and timed as a CUDA graph of 20
 calls, inputs warm in L2, in turns with the others and with one library call
-of the same function (``F.conv2d``, SDPA). The stem runs on x [8, 3, 256,
-256], the model's NHWC image viewed as NCHW; attention runs one forward's
+of the same function (``F.conv2d``, SDPA). The stem runs on x [b, 3, 256,
+256] (``--batch``, a list of image counts, default 8: the serving forward's),
+the model's NHWC image viewed as NCHW; its variants change the tile (rows,
+warpgroups a block, patches in flight), the K order or the rounding of the
+image's lo (fp32), or take out the gathers, the products or the store, and
+each variant's RMS error against the conv in float64 is printed beside
+F.conv2d's. Attention runs one forward's
 five calls on [b, n, h, d] views: at batch 1 the serving forward's, (168, 168)
 x2, (21, 147), (21, 21) x2, at a larger batch (``--batch``, a list) a
 training or eval microbatch's, (105, 105) x2, (21, 84), (21, 21) x2.
@@ -67,35 +72,50 @@ def _drop(line: str, repl: str) -> list:
 VARIANTS = {
     ("stem", "bfloat16"): {
         "source": [],
-        "tile_4x64": _subs(kGTH=4, kGTW=64),
-        "tile_2x128": _subs(kGTH=2, kGTW=128),
-        # the gathers and ldmatrix feed only the products, so they go too
-        "no_gather_mma": _drop("mma_bf16(acc[mt][j], a, bf[j][0], bf[j][1]);", "(void)a;"),
-        "no_global_loads": (_drop("rw[it] = e < kCout * kTaps ? w[e] : 0;", "rw[it] = e & 7;")
-                            + _drop("rp[it] = in ? xn[c * sc + ih * sh + iw * sw] : 0;",
-                                    "rp[it] = in;")),
-        "no_output_store": _drop("*reinterpret_cast<uint4*>(dst) = "
-                                 "*reinterpret_cast<const uint4*>(src);",
-                                 "if (src[0] == 0x7fff) dst[0] = 1;"),
+        # a warpgroup's tile (rows x 32 pixels: N of the tile 64 x rows / 2),
+        # warpgroups a block (one block a SM), patches in flight (each variant
+        # compiles the fp32 kernel too: kF32Groups=3 keeps its shared memory
+        # within a block's)
+        "rows_4_groups_2": _subs(kBf16Rows=4, kBf16Groups=2),
+        "rows_4_groups_3": _subs(kBf16Rows=4, kBf16Groups=3),
+        "stages_3": _subs(kStages=3, kF32Groups=3),
+        "k192": _subs(kWin=8, kF32Groups=3),  # the TPU kernel's s2d K order, 8 x 8 x 3 = 192
+        # phases taken out: the gathers (the fragments from the k table), the
+        # products (the gathers feed the accumulators), the TMA store
+        "no_gather": _drop("  v[0] = *reinterpret_cast<const uint32_t*>(q + e.x);\n"
+                           "  v[1] = *reinterpret_cast<const uint32_t*>(q + 48 + e.x);\n"
+                           "  v[2] = *reinterpret_cast<const uint32_t*>(q + e.z);\n"
+                           "  v[3] = *reinterpret_cast<const uint32_t*>(q + 48 + e.z);",
+                           "  v[0] = v[1] = v[2] = v[3] = e.x;"),
+        "no_wgmma": _drop("for (int mt = 0; mt < kMT; ++mt) wgmma_bf16(acc[mt], f[mt], b, s > 0);",
+                          "for (int mt = 0; mt < kMT; ++mt) acc[mt][s % 32] += "
+                          "__uint_as_float(f[mt][0] ^ f[mt][1] ^ f[mt][2] ^ f[mt][3]);"),
+        "no_store": _drop("tma_store_4d(ym, stage_s, at.ox0, 0, at.oy0, at.n);", ""),
     },
     ("stem", "float32"): {
         "source": [],
-        "tile_4x64": _subs(kFTH=4, kFTW=64),
-        "ks_unroll_1": _drop("#pragma unroll 4\n  for (int ks = 0;",
-                             "#pragma unroll 1\n  for (int ks = 0;"),
-        "ks_unroll_full": _drop("#pragma unroll 4\n  for (int ks = 0;",
-                                "#pragma unroll\n  for (int ks = 0;"),
-        # the gathers, splits and fragment loads feed only the products
-        "no_gather_mma": _drop("mma_tf32x3(acc[mt][j], ah, al, bh[j], bl[j]);",
-                               "(void)ah, (void)al;"),
-        "no_global_loads": (_drop("rw[it][reg] = f < kFrags && kr < kTaps ? "
-                                  "w[(oc + 8 * (reg & 1)) * kTaps + kr] : 0.f;",
-                                  "rw[it][reg] = f & 7;")
-                            + _drop("rp[it] = in ? xn[c * sc + ih * sh + iw * sw] : 0.f;",
-                                    "rp[it] = in;")),
-        "no_output_store": _drop("*reinterpret_cast<float4*>(dst) = "
-                                 "*reinterpret_cast<const float4*>(src);",
-                                 "if (src[0] == 1234.5f) dst[0] = 1.f;"),
+        "rows_4_groups_2": _subs(kF32Rows=4, kF32Groups=2),
+        "groups_3": _subs(kF32Groups=3),
+        "rows_8_groups_1": _subs(kF32Rows=8, kF32Groups=1),  # (shared memory: one group)
+        # at 3 warpgroups (4 would overflow a block's shared memory): against groups_3
+        "groups_3_stages_3": _subs(kStages=3, kF32Groups=3),
+        "groups_3_k192": _subs(kWin=8, kF32Groups=3),
+        # the image's lo rounded to TF32 too (as the weights'), not truncated
+        "lo_rounded": _drop("  split_hi(__uint_as_float(v[0] & e.y), h[0], l[0]);\n"
+                            "  split_hi(__uint_as_float(v[2] & e.y), h[1], l[1]);\n"
+                            "  split_hi(__uint_as_float(v[1] & e.z), h[2], l[2]);\n"
+                            "  split_hi(__uint_as_float(v[3] & e.z), h[3], l[3]);",
+                            "  split_tf32(__uint_as_float(v[0] & e.y), h[0], l[0]);\n"
+                            "  split_tf32(__uint_as_float(v[2] & e.y), h[1], l[1]);\n"
+                            "  split_tf32(__uint_as_float(v[1] & e.z), h[2], l[2]);\n"
+                            "  split_tf32(__uint_as_float(v[3] & e.z), h[3], l[3]);"),
+        "no_gather": _drop("  v[0] = a.x, v[1] = a.y, v[2] = b.x, v[3] = b.y;",
+                           "  v[0] = v[1] = v[2] = v[3] = e.x;"),
+        "no_wgmma": _drop("for (int mt = 0; mt < kMT; ++mt) "
+                          "wgmma_tf32x3(acc[mt], h[mt], l[mt], bh, bl, s > 0);",
+                          "for (int mt = 0; mt < kMT; ++mt) acc[mt][s % 32] += "
+                          "__uint_as_float(h[mt][0] ^ h[mt][1] ^ l[mt][2] ^ l[mt][3]);"),
+        "no_store": _drop("tma_store_4d(ym, stage_s, at.ox0, 0, at.oy0, at.n);", ""),
     },
     ("attention", "float32"): {
         "source": [],
@@ -188,26 +208,34 @@ def _check(code: int) -> None:
         raise RuntimeError(f"launch failed: CUDA error {code}")
 
 
-def stem_cases(entries: dict, dtype) -> tuple[dict, dict, float]:
-    """{name: call} for each variant and F.conv2d, {name: max error}, max|ref|."""
+def stem_cases(entries: dict, dtype, images: int = 8) -> tuple[dict, dict, float, dict]:
+    """{name: call} for each variant and F.conv2d on x [images, 3, 256, 256],
+    {name: max error against the plain version}, max|ref|, and {name: RMS
+    error against the conv in float64 on the same inputs} (F.conv2d's too)."""
     g = torch.Generator("cuda").manual_seed(0)
-    x = torch.randn(8, 256, 256, 3, generator=g, device="cuda").to(dtype).permute(0, 3, 1, 2)
+    x = torch.randn(images, 256, 256, 3, generator=g, device="cuda").to(dtype).permute(0, 3, 1, 2)
     w = (torch.randn(64, 3, 7, 7, generator=g, device="cuda") * 0.05).to(dtype)
     ref = stem_conv_plain(x, w)
-    fns, errs = {}, {}
+    ref64 = F.conv2d(x.double(), w.double(), stride=2, padding=3)
+
+    def rms(y: torch.Tensor) -> float:
+        return float((y.double() - ref64).pow(2).mean().sqrt())
+
+    fns, errs, rms64 = {}, {}, {"library": rms(ref)}
     for name, fn in entries.items():
-        y = torch.empty((8, 64, 128, 128), dtype=dtype, device="cuda")
+        y = torch.empty((images, 64, 128, 128), dtype=dtype, device="cuda")
 
         def call(fn=fn, y=y):
-            _check(fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), DTYPE_CODES[dtype], 8, 256, 256,
-                      *x.stride(), torch.cuda.current_stream().cuda_stream))
+            _check(fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), DTYPE_CODES[dtype], images,
+                      256, 256, *x.stride(), torch.cuda.current_stream().cuda_stream))
 
         call()
         torch.cuda.synchronize()
         errs[name] = float((y.float() - ref.float()).abs().max())
+        rms64[name] = rms(y)
         fns[name] = call
     fns["library"] = lambda: F.conv2d(x, w, stride=2, padding=3)
-    return fns, errs, float(ref.float().abs().max())
+    return fns, errs, float(ref.float().abs().max()), rms64
 
 
 def attention_cases(entries: dict, dtype, batch: int = 1) -> tuple[dict, dict, float]:
@@ -254,8 +282,9 @@ def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("kernel", choices=("stem", "attention", "attention_tiles"))
     parser.add_argument("--dtype", choices=sorted(DTYPES), default="float32")
-    parser.add_argument("--batch", default="1",
-                        help="attention: batches to time, comma-separated (1 = serving shapes)")
+    parser.add_argument("--batch", default=None,
+                        help="batches to time, comma-separated: attention's (default 1, the "
+                        "serving shapes), the stem's images of 256^2 (default 8)")
     parser.add_argument("--against", type=Path, default=None,
                         help="another checkout whose kernel source is timed beside these")
     args = parser.parse_args(argv)
@@ -273,9 +302,11 @@ def main(argv=None) -> None:
     if args.kernel == "attention_tiles":  # the other design, as the port builds it
         entries["key_split"] = _entry(_build.load("attention"), "attention")
     runs = []
-    for batch in ([1] if args.kernel == "stem" else [int(b) for b in args.batch.split(",")]):
+    batches = args.batch or ("8" if args.kernel == "stem" else "1")
+    for batch in [int(b) for b in batches.split(",")]:
+        rms64 = {}
         if args.kernel == "stem":
-            fns, errs, ref_max = stem_cases(entries, dtype)
+            fns, errs, ref_max, rms64 = stem_cases(entries, dtype, batch)
             us, per_call = _time(fns), {}
         else:
             fns, errs, ref_max = attention_cases(entries, dtype, batch)
@@ -287,12 +318,14 @@ def main(argv=None) -> None:
                   for name, by_shape in per_call.items() if len(by_shape) == len(calls)}
         for name in per_call or us:
             err = f" max_abs_err={errs[name]:.3e}" if name in errs else ""
+            err += f" rms_err_f64={rms64[name]:.3e}" if name in rms64 else ""
             total = f"{us[name]:.2f} us" if name in us else "refused at some shape"
             shapes = "".join(f" ({s[0]},{s[1]}) {c:.2f}"
                              for s, c in per_call.get(name, {}).items())
             print(f"batch {batch} {name}: {total}{' per call' + shapes if shapes else ''}{err}",
                   flush=True)
         runs.append({"batch": batch, "us": us, "max_abs_err": errs, "max_abs_ref": ref_max,
+                     "rms_err_f64": rms64,
                      "per_call_us": {name: {f"{s[0]},{s[1]}": c for s, c in by_shape.items()}
                                      for name, by_shape in per_call.items()}})
     print(json.dumps({"device": torch.cuda.get_device_name(0), "card": smi.stdout.strip(),

@@ -3,8 +3,9 @@ handmvnet_tpu/ops/pallas/stem.py).
 
 The conv is the custom op ``hmv::stem_conv`` (``torch.library``), so that
 ``torch.export`` keeps it as one node of a graph. Its CUDA implementation
-launches the hand-written kernel (csrc/stem.cu) or raises; its CPU
-implementation computes ``stem_conv_plain``. Both return contiguous NCHW,
+launches the hand-written kernel (csrc/stem.cu: a persistent implicit GEMM on
+wgmma, bf16 and 3xTF32) or raises; its CPU implementation computes
+``stem_conv_plain``. Both return contiguous NCHW,
 as its fake does; the kernel is exact at every input size, odd ones
 included. Its backward takes the convolution's weight and input gradients
 from ``torch.nn.grad``: the counterpart of the gradient XLA takes through
@@ -43,6 +44,21 @@ def _entry():
         )
         fn.restype = ctypes.c_int
     return lib, fn
+
+
+def stem_routes(x: torch.Tensor, out: torch.Tensor) -> tuple[str, str]:
+    """How the kernel moves these tensors (CUDA only): the input patches and
+    the output tiles, each "tma" or, where TMA cannot take the tensor's
+    strides or alignment, "threads" (csrc/stem.cu's hmv_stem_routes)."""
+    lib = _build.load("stem")
+    fn = lib.hmv_stem_routes
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_int] * 4 + [ctypes.c_longlong] * 4
+                       + [ctypes.c_void_p] * 2)
+        fn.restype = ctypes.c_int
+    n, _, h, w = x.shape
+    bits = fn(_DTYPES[x.dtype], n, h, w, *x.stride(), x.data_ptr(), out.data_ptr())
+    return tuple("tma" if bits >> i & 1 else "threads" for i in (0, 1))
 
 
 def _out_shape(x: torch.Tensor) -> tuple[int, int, int, int]:

@@ -44,7 +44,7 @@ import torch
 from handmvnet_tpu_torch.ops import _build
 from handmvnet_tpu_torch.ops.attention import (
     DESIGNS, TILE_MAX_KEYS, attention_design, attention_plain, fused_attention, launch_design)
-from handmvnet_tpu_torch.ops.stem import stem_conv_nchw, stem_conv_plain
+from handmvnet_tpu_torch.ops.stem import stem_conv_nchw, stem_conv_plain, stem_routes
 
 pytestmark = pytest.mark.cuda
 
@@ -177,17 +177,30 @@ def test_fused_attention_launches_the_rules_design(card, dtype, batch, nq, nk):
     _held_to_plain(out, q, k, v, dtype)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
-@pytest.mark.parametrize("shape", [(8, 256, 256), (2, 64, 96), (1, 30, 34), (3, 29, 33)])
-@pytest.mark.parametrize("layout", ["nhwc_view", "nchw"])
-def test_stem_kernel_matches_plain(card, dtype, shape, layout):
+def _stem_input(card, dtype, shape, layout, seed):
     n, h, w = shape
-    g = torch.Generator(card).manual_seed(h * 100 + w)
+    g = torch.Generator(card).manual_seed(seed)
     if layout == "nhwc_view":  # the model's layout: an NHWC image viewed as NCHW
         x = torch.randn(n, h, w, 3, generator=g, device=card).to(dtype).permute(0, 3, 1, 2)
     else:  # contiguous NCHW: strides c = H*W, w = 1
         x = torch.randn(n, 3, h, w, generator=g, device=card).to(dtype)
-    weight = (torch.randn(64, 3, 7, 7, generator=g, device=card) * 0.05).to(dtype)
+    return x, (torch.randn(64, 3, 7, 7, generator=g, device=card) * 0.05).to(dtype)
+
+
+# the main path's serving shape and a training microbatch's (more tiles than
+# the card's warpgroups), a one-tile image, ragged and odd sizes; output
+# widths 17 and 50 leave rows off 16 bytes, where the kernel stores with its
+# threads instead of TMA
+STEM_SHAPES = [(8, 256, 256), (40, 256, 256), (1, 16, 16), (2, 64, 96), (2, 64, 100),
+               (1, 30, 34), (3, 29, 33)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", STEM_SHAPES)
+@pytest.mark.parametrize("layout", ["nhwc_view", "nchw"])
+def test_stem_kernel_matches_plain(card, dtype, shape, layout):
+    n, h, w = shape
+    x, weight = _stem_input(card, dtype, shape, layout, h * 100 + w)
     before = stem_conv_nchw.launches
     out = stem_conv_nchw(x, weight)
     torch.cuda.synchronize()
@@ -195,6 +208,41 @@ def test_stem_kernel_matches_plain(card, dtype, shape, layout):
     ref = stem_conv_plain(x, weight)
     assert out.shape == ref.shape == (n, 64, (h + 1) // 2, (w + 1) // 2)
     err = float((out.float() - ref.float()).abs().max())
+    assert err <= _tol(dtype, ref.float(), 1e-5 * float(ref.float().abs().max())), err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_stem_routes(card, dtype):
+    """TMA moves the main path's tensors both ways; a contiguous NCHW input,
+    and output rows off 16 bytes (width 50), take the threads' copies."""
+    def routes(shape, layout):
+        x, _ = _stem_input(card, dtype, shape, layout, 0)
+        n, _, h, w = x.shape
+        return stem_routes(x, x.new_empty(n, 64, (h + 1) // 2, (w + 1) // 2))
+
+    assert routes((8, 256, 256), "nhwc_view") == ("tma", "tma")
+    assert routes((8, 256, 256), "nchw") == ("threads", "tma")
+    assert routes((2, 64, 100), "nhwc_view")[1] == "threads"
+    assert routes((1, 30, 34), "nchw") == ("threads", "threads")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("layout", ["nhwc_view", "nchw"])
+def test_stem_kernel_keeps_nan_in_its_windows(card, dtype, layout):
+    """A NaN at input (row 20, column 40) reaches exactly the outputs whose 7 x
+    7 windows cover it (rows 9..11, columns 19..21); the kernel's padded taps
+    read neighbouring pixels (column 40 is the padded tap of output column 22),
+    and their zeroed inputs keep it out of the others."""
+    x, weight = _stem_input(card, dtype, (1, 64, 64), layout, 7)
+    x[0, :, 20, 40] = float("nan")
+    out = stem_conv_nchw(x, weight)
+    torch.cuda.synchronize()
+    hit = torch.zeros(32, 32, dtype=torch.bool, device=card)
+    hit[9:12, 19:22] = True  # 2 o - 3 <= 20 <= 2 o + 3 and 2 o - 3 <= 40 <= 2 o + 3
+    assert torch.equal(out[0].isnan().any(0), hit)
+    assert out[0, :, hit].isnan().all()
+    ref = stem_conv_plain(torch.nan_to_num(x), weight)
+    err = float((out.float() - ref.float())[:, :, ~hit].abs().max())
     assert err <= _tol(dtype, ref.float(), 1e-5 * float(ref.float().abs().max())), err
 
 

@@ -13,9 +13,14 @@ alone (hi_a hi_b) misses both; its error is printed beside each case
 why the split is needed. K1's second fp32 kernel ("query_tiles",
 csrc/attention_tiles.cu) leaves lo = x - hi unrounded for the tensor core to
 truncate, splits each row tile's keys over two warps and merges their
-softmaxes: its emulation is held to the same 2e-5 at (105, 105). The card
-holds the kernels themselves against the plain versions at the same
-tolerances (tests/test_torch_cuda.py, chip_smoke.py).
+softmaxes: its emulation is held to the same 2e-5 at (105, 105). The stem's
+emulation is its wgmma kernel's: the K order of csrc/stem.cu (window rows of
+22 elements, a padded tap first, then 7 columns x 3 channels; K = 154 padded
+to 160), the weights' lo rounded and the image's truncated, and per k step
+of 8 the three m64n64k8 products hi_a lo_b, lo_a hi_b, hi_a hi_b added to
+one accumulator. The card holds the kernels themselves against the
+plain versions at the same tolerances (tests/test_torch_cuda.py,
+chip_smoke.py).
 """
 
 import jax.numpy as jnp
@@ -23,7 +28,7 @@ import numpy as np
 import pytest
 
 from handmvnet_tpu.ops.pallas.attention import fused_attention as jax_fused_attention
-from handmvnet_tpu.ops.pallas.stem import stem_s2d_fused
+from handmvnet_tpu.ops.pallas.stem import _reorder_weights, stem_s2d_fused
 
 K_STEP = 8  # k of one mma.m16n8k8
 LOG2E = np.float32(1.4426950408889634)
@@ -43,15 +48,18 @@ def tf32_truncated(x: np.ndarray) -> np.ndarray:
     return (bits & np.uint32(0xFFFFE000)).view(np.float32)
 
 
-def tf32_matmul(a: np.ndarray, b: np.ndarray, split: bool, lo=tf32) -> np.ndarray:
+def tf32_matmul(a: np.ndarray, b: np.ndarray, split: bool, lo=tf32, lo_b=None,
+                b_lo_first: bool = False) -> np.ndarray:
     """a [..., M, K] @ b [..., K, N] as the tensor cores take it: per step of
     8 k, each TF32 product summed exactly and added to an f32 accumulator.
-    split: 3xTF32 (lo_a hi_b, hi_a lo_b, hi_a hi_b); else hi_a hi_b alone.
-    lo: how x - hi becomes TF32 (rounded by cvt.rna, or truncated as read)."""
+    split: 3xTF32 (lo_a hi_b, hi_a lo_b, hi_a hi_b, or with b_lo_first hi_a
+    lo_b first); else hi_a hi_b alone. lo: how x - hi becomes TF32 (rounded by
+    cvt.rna, or truncated as read); lo_b: the same for b where it differs."""
     a, b = a.astype(np.float32), b.astype(np.float32)
     a_hi, b_hi = tf32(a), tf32(b)
-    a_lo, b_lo = lo(a - a_hi), lo(b - b_hi)
-    terms = [(a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi)] if split else [(a_hi, b_hi)]
+    a_lo, b_lo = lo(a - a_hi), (lo_b or lo)(b - b_hi)
+    small = [(a_hi, b_lo), (a_lo, b_hi)] if b_lo_first else [(a_lo, b_hi), (a_hi, b_lo)]
+    terms = small + [(a_hi, b_hi)] if split else [(a_hi, b_hi)]
     acc = np.zeros(a.shape[:-1] + b.shape[-1:], np.float32)
     for k0 in range(0, a.shape[-1], K_STEP):
         for x, y in terms:
@@ -100,23 +108,67 @@ def test_query_tiles_fp32_holds_the_fp32_tolerance():
     assert got.shape == ref.shape and err <= 2e-5, err
 
 
+def stem_k_order(win: int = 7) -> list:
+    """The K order of csrc/stem.cu's kernels: each window row r a run of
+    (3 win + 1) // 2 * 2 elements, its padded taps first, then win columns x 3
+    channels (the image's NHWC order); win 7 the kernels' (runs of 22, K =
+    154), win 8 the TPU kernel's s2d order over an 8 x 8 window whose first
+    row and column are zero (K = 192). Each k's tap (c, kh, kw), or None."""
+    run = (3 * win + 1) // 2 * 2
+    front = run - 3 * win
+    taps = []
+    for k in range(win * run):
+        r, e = divmod(k, run)
+        e -= front
+        valid = r >= win - 7 and e >= 3 * (win - 7)
+        taps.append((e % 3, r - (win - 7), e // 3 - (win - 7)) if valid else None)
+    return taps
+
+
+def stem_weight_matrix(kernel: np.ndarray, win: int = 7) -> np.ndarray:
+    """kernel [7, 7, 3, F] HWIO -> [K, F] rows in stem_k_order, zeros at the
+    padded taps."""
+    rows = [kernel[kh, kw, c] if tap else np.zeros(kernel.shape[-1], kernel.dtype)
+            for tap in stem_k_order(win) for c, kh, kw in [tap or (0, 0, 0)]]
+    return np.stack(rows)
+
+
 def stem_emulated(x, kernel, split):
     """The fp32 stem kernel's arithmetic: the 7x7 / stride 2 / pad 3 conv as
-    im2col [pixels, K] x W^T [K, 64], K = the 147 taps in (c, kh, kw) order
-    padded with zeros to 152. x [N, H, W, 3] NHWC, kernel [7, 7, 3, 64] HWIO."""
+    im2col [pixels, K] x W [K, 64] in the kernel's K order, padded with zeros
+    to 160 (20 k steps of 8); the image's lo truncated, the weights' rounded,
+    and per step hi_a lo_b, lo_a hi_b, hi_a hi_b. x [N, H, W, 3] NHWC, kernel
+    [7, 7, 3, 64] HWIO."""
     n, h, w, _ = x.shape
     ho, wo = (h + 1) // 2, (w + 1) // 2
     xp = np.pad(x, ((0, 0), (3, 4), (3, 4), (0, 0)))
-    taps = [xp[:, kh:kh + 2 * ho:2, kw:kw + 2 * wo:2, c]
-            for c in range(3) for kh in range(7) for kw in range(7)]
-    cols = np.stack(taps + [np.zeros_like(taps[0])] * 5, axis=-1)  # [N, Ho, Wo, 152]
-    weights = np.transpose(kernel, (3, 2, 0, 1)).reshape(64, 147)  # OIHW rows
-    weights = np.concatenate([weights, np.zeros((64, 5), np.float32)], axis=1)
-    return tf32_matmul(cols.reshape(-1, 152), weights.T, split).reshape(n, ho, wo, 64)
+    zero = np.zeros((n, ho, wo), np.float32)
+    taps = [xp[:, kh:kh + 2 * ho:2, kw:kw + 2 * wo:2, c] if tap else zero
+            for tap in stem_k_order() for c, kh, kw in [tap or (0, 0, 0)]]
+    cols = np.stack(taps + [zero] * (160 - len(taps)), axis=-1)  # [N, Ho, Wo, 160]
+    weights = stem_weight_matrix(kernel)
+    weights = np.concatenate([weights, np.zeros((160 - len(weights), 64), np.float32)])
+    return tf32_matmul(cols.reshape(-1, 160), weights, split, tf32_truncated, tf32,
+                       b_lo_first=True).reshape(n, ho, wo, 64)
+
+
+@pytest.mark.parametrize("win", [7, 8])
+def test_stem_k_order_holds_every_tap_once(win):
+    taps = [tap for tap in stem_k_order(win) if tap is not None]
+    assert sorted(taps) == [(c, kh, kw) for c in range(3) for kh in range(7) for kw in range(7)]
+
+
+def test_stem_k_order_192_is_the_tpu_kernels():
+    """The 8 x 8 window's order (the kernel's kWin = 8 variant) is the Pallas
+    kernel's s2d column order (a, r, b, s, c), bitwise."""
+    kernel = np.random.default_rng(192).normal(size=(7, 7, 3, 64)).astype(np.float32)
+    ours = stem_weight_matrix(kernel, 8)
+    assert ours.shape == (192, 64)
+    assert np.array_equal(ours, np.asarray(_reorder_weights(jnp.asarray(kernel))))
 
 
 CASES = [("attention", (168, 168)), ("attention", (21, 147)), ("attention", (21, 21)),
-         ("stem", (2, 64, 64))]
+         ("stem", (2, 64, 64)), ("stem", (1, 32, 96))]
 
 
 @pytest.mark.parametrize("kernel,shape", CASES, ids=[f"{k}-{'x'.join(map(str, s))}"
