@@ -1,0 +1,3 @@
+"""The device's idle share in training's traced slice."""
+
+from hmvbench.readers import idle_share as read  # noqa: F401
