@@ -159,8 +159,8 @@ Phases; any failure exits nonzero and prints no result:
      of 18, 34, 50, 101 and 152 at early_return 3 (the transposed-conv
      head): a short eval_fps protocol (10 + 2 x 50 steps, the mesh stage
      included), K1 5 and K2 1 launches a forward, the p50 and the forward's
-     GFLOPs, the forward alone's device ms, ops and busy share (profiler)
-     and CUDA-graph ms, and the kernel path against the plain path (phase
+     GFLOPs, the forward alone's device ms and ops (profiler) and
+     CUDA-graph ms, and the kernel path against the plain path (phase
      5's serving limits); (b) the learnable-query fusion on the ResNet-50 "paper" model:
      the same protocol with K1 0 and K2 1 launches a forward (its attention
      is plain ops, D = 256), and the kernel path against the plain path;
@@ -189,8 +189,7 @@ Phases; any failure exits nonzero and prints no result:
      and bf16 (K1 5 and K2 1 launches a forward, the p50s side by side);
      int8 against the exact model on the same weights (backbone map
      correlation > 0.98, median joints_crop_img delta < 4 px: the JAX
-     package's bounds) with the int8 forward's device ms, ops and busy
-     share; the int8 kernel path against the plain path (phase 5's
+     package's bounds) with the int8 forward's device ms and ops; the int8 kernel path against the plain path (phase 5's
      limits); an export bundle of the int8 model replayed against the live
      infer_step (K1 5, K2 1); (c) on the HO3D ResNet and HR release
      recipes, two optimizer steps with train.remat on against off from
@@ -2254,12 +2253,12 @@ def family_serving(attention_ops, stem_ops, card_line: str) -> dict:
         model = build_model(cfg, 8, 256, "cuda")
         inputs = model_inputs(8, 256, "cuda", torch.float32)
         gflops = card_gflops(model, inputs)
-        # the forward alone: device time and ops (profiler), busy share, CUDA-graph replay
+        # the forward alone: device time and ops (profiler), CUDA-graph replay
         prof = profile_calls(lambda: model(*inputs), warmup=3, iters=20, profiled=5, top=3)
         print(f"family {name}: p50_ms={stats['p50_ms']:.4f} forward_gflops={gflops:.3f}; "
               f"forward alone: wall_p50_ms={prof['wall_p50_ms']:.3f} device_ms="
               f"{prof['device_ms']:.3f} device_ops={prof['device_ops_per_forward']:.0f} "
-              f"busy={prof['busy']:.2f} graph_ms={prof['graph_ms']:.3f} "
+              f"graph_ms={prof['graph_ms']:.3f} "
               f"TFLOP/s={gflops / prof['device_ms']:.2f} ({card_line})", flush=True)
         del model
         # The learnable-query blocks have no LayerNorm, so on random weights (the
@@ -2675,7 +2674,7 @@ def int8_serving(attention_ops, stem_ops, card_line: str, tmp: Path) -> dict:
                 prof = profile_calls(lambda: model(*inputs), warmup=3, iters=20, profiled=5, top=3)
                 print(f"int8 {name} forward alone: wall_p50_ms={prof['wall_p50_ms']:.3f} "
                       f"device_ms={prof['device_ms']:.3f} device_ops="
-                      f"{prof['device_ops_per_forward']:.0f} busy={prof['busy']:.2f} "
+                      f"{prof['device_ops_per_forward']:.0f} "
                       f"graph_ms={prof['graph_ms']:.3f} ({card_line})", flush=True)
                 out[f"device_ms_{name}"] = prof["device_ms"]
             del model

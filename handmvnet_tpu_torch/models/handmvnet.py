@@ -58,6 +58,7 @@ from handmvnet_tpu_torch.ops.geometry import (
     joints_crop_to_img,
 )
 from handmvnet_tpu_torch.ops.heatmap import soft_argmax_2d
+from handmvnet_tpu_torch.utils.profiling import span
 
 
 def _at_least_f32(dtype: torch.dtype) -> torch.dtype:
@@ -181,7 +182,8 @@ class HandMvNet(nn.Module):
         j = cfg.num_joints
         images = x.reshape(b * v, *x.shape[2:]).permute(0, 3, 1, 2)  # NCHW view
 
-        feats = self.backbone(images)
+        with span("backbone"):
+            feats = self.backbone(images)
         if isinstance(feats, dict):
             # deepest map first; the rank-2 res_layer4_mean is not sampled
             feats = [f for f in reversed(feats.values()) if f.dim() == 4]

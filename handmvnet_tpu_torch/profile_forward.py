@@ -8,7 +8,6 @@ and for each one JSON line with:
   * device_ms: the summed device time of the kernels (and copies) one step
     runs, from torch.profiler, and how many there are
     (device_ops_per_forward);
-  * busy: device_ms / wall_p50_ms, the share of the request the card works;
   * graph_ms: the same step captured once in a CUDA graph and replayed,
     i.e. the card's time when the host does not hold it back;
   * top: the kernels with the most device time per step.
@@ -61,8 +60,8 @@ def graph_ms(fn, calls: int = 1, replays: int = 50) -> float:
 
 def profile_calls(fn, warmup: int = 10, iters: int = 50, profiled: int = 10,
                   top: int = 12) -> dict:
-    """wall_p50_ms, device_ms, device_ops_per_forward, busy, graph_ms and the
-    top kernels of one call of ``fn`` on the card."""
+    """wall_p50_ms, device_ms, device_ops_per_forward, graph_ms and the top
+    kernels of one call of ``fn`` on the card."""
     with torch.inference_mode():
         for _ in range(warmup):
             fn()
@@ -86,13 +85,10 @@ def profile_calls(fn, warmup: int = 10, iters: int = 50, profiled: int = 10,
                 n_device += 1
         graph = graph_ms(fn)
 
-    wall_p50 = float(np.percentile(wall, 50))
-    device_ms = sum(per_name.values()) if n_device else None
     return {
-        "wall_p50_ms": wall_p50,
-        "device_ms": device_ms,
+        "wall_p50_ms": float(np.percentile(wall, 50)),
+        "device_ms": sum(per_name.values()) if n_device else None,
         "device_ops_per_forward": n_device / profiled,
-        "busy": device_ms / wall_p50 if device_ms is not None else None,
         "graph_ms": graph,
         "top": sorted(([name, ms] for name, ms in per_name.items()), key=lambda t: -t[1])[:top],
     }

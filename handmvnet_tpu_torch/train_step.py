@@ -47,6 +47,7 @@ from handmvnet_tpu_torch.config import Config
 from handmvnet_tpu_torch.losses import handmvnet_loss
 from handmvnet_tpu_torch.models.handmvnet import HandMvNet
 from handmvnet_tpu_torch.parallel.mesh import all_reduce_mean_
+from handmvnet_tpu_torch.utils.profiling import span
 
 
 @dataclass
@@ -198,8 +199,10 @@ def accumulate_grads(state: TrainState, cfg: Config, batch: Mapping[str, torch.T
     sums: Dict[str, torch.Tensor] = {}
     for i in range(accum_steps):
         micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
-        losses, _ = forward_loss(model, cfg, micro, generator)
-        (losses["loss"] / accum_steps).backward()
+        with span("forward"):
+            losses, _ = forward_loss(model, cfg, micro, generator)
+        with span("backward"):
+            (losses["loss"] / accum_steps).backward()
         for k, v in losses.items():
             sums[k] = sums[k] + v.detach() if k in sums else v.detach()
     means = {k: v / accum_steps for k, v in sums.items()}
@@ -231,8 +234,10 @@ def optimizer_step(state: TrainState, cfg: Config) -> torch.Tensor:
     """Clip the gradients to ``grad_clip`` global norm, take the AdamW step,
     advance the LR schedule. Returns the norm before clipping (on the
     device)."""
-    norm = torch.nn.utils.clip_grad_norm_(state.model.parameters(), cfg.train.grad_clip)
-    state.optimizer.step()
+    with span("clip"):
+        norm = torch.nn.utils.clip_grad_norm_(state.model.parameters(), cfg.train.grad_clip)
+    with span("adamw"):
+        state.optimizer.step()
     state.scheduler.step()
     state.step += 1
     return norm
@@ -243,9 +248,13 @@ def train_step(state: TrainState, cfg: Config, batch: Mapping[str, torch.Tensor]
                group: dist.ProcessGroup | None = None) -> Dict[str, torch.Tensor]:
     """One optimizer step over ``batch`` (this rank's, with ``group``);
     returns its losses (on the device; with ``group``, their mean over the
-    ranks)."""
-    losses = accumulate_grads(state, cfg, batch, generator, accum_steps, group)
-    optimizer_step(state, cfg)
+    ranks). Its span, ``train_step``, carries the optimizer steps taken
+    before it as its step id, and its microbatches' ``forward`` (with the
+    model's ``backbone``) and ``backward``, ``clip`` and ``adamw`` spans
+    inherit it."""
+    with span("train_step", state.step):
+        losses = accumulate_grads(state, cfg, batch, generator, accum_steps, group)
+        optimizer_step(state, cfg)
     return losses
 
 
